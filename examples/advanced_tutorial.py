@@ -4,7 +4,7 @@ from datetime import datetime, timedelta
 
 from simglucose_tpu.sim import SimObj, batch_sim, simulate
 
-# --- One-call cohort simulation (the TPU-native way) -----------------------
+# --- One-call cohort simulation (one compiled program) ----------------------
 # Everything below runs as ONE compiled jit(vmap(scan)) program.
 df = simulate(
     sim_time=timedelta(hours=24),

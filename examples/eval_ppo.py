@@ -8,8 +8,8 @@ percentages and LBGI/HBGI/risk index per patient
 (reference: examples/results/2017-12-31_17-46-32/performance_stats.csv,
 analysis/report.py:74-133).
 
-The policy checkpoint was trained by tools/train_ppo_tpu.py (fused-PPO,
-pallas in-kernel actor at B=8192 on one v5e chip); it is loaded in its
+The policy checkpoint was trained by tools/train_ppo_cohort.py (fused PPO,
+the in-kernel actor at B=8192); it is loaded in its
 deterministic deployment form (mean action, no exploration noise) via
 rl/evaluate.policy_controller — an ordinary functional controller that
 also drops into simulate() and the gym wrappers.

@@ -1,8 +1,8 @@
-"""Population-scale cohort simulation on the pallas in-VMEM engine.
+"""Population-scale cohort simulation on the rollout-kernel engine.
 
 Runs 4096 virtual patients for a simulated day (~2M env steps, ~6M patient
-minutes) in a couple of seconds of device time on one TPU chip — the
-high-throughput analog of the reference's batch_sim over a process pool
+minutes) in milliseconds of device time on one GPU (plus the kernel's
+one-off compile) — the high-throughput analog of the reference's batch_sim over a process pool
 (reference: simulation/sim_engine.py:65-76).  The ``engine='pallas'``
 fast path supports BB/PID controllers with random daily meal scenarios;
 anything else (custom controllers/rewards/scenarios) runs on the general
@@ -18,7 +18,7 @@ df = simulate(
     patient_names=cohort_names(4096),  # 30 archetypes cycled to 4096
     controller="BB",
     scenario_seed=7,
-    engine="pallas",  # 'auto' also picks pallas at this cohort size on TPU
+    engine="pallas",  # needs a GPU; 'auto' takes the XLA engine elsewhere
 )
 
 bg = df["BG"].to_numpy()

@@ -1,4 +1,4 @@
-"""On-device PPO training over a sharded patient cohort — the TPU-native
+"""On-device PPO training over a sharded patient cohort — the on-device
 analog of the reference's rllab DDPG example (reference examples/run_rllab.py),
 re-designed as a single-program actor-learner (see simglucose_tpu/rl/ppo.py).
 """

@@ -1,9 +1,10 @@
-"""Fused PPO training: the actor rollout runs as ONE pallas TPU kernel
-(env physics + policy MLP on the MXU + action sampling in VMEM,
+"""Fused PPO training: the actor rollout runs as ONE GPU kernel (env
+physics + policy MLP + action sampling, state in registers,
 simglucose_tpu/rl/fused.py); the learner stays in XLA and episodes persist
 across iterations.  The fastest way to train a glucose controller at
-cohort scale — the kernel rolls the closed loop >1B env-steps/s/chip where
-the XLA-scan actor (examples/train_ppo.py) tops out ~24M.
+cohort scale — the kernel rolls the closed loop tens of times faster than
+the XLA-scan actor of examples/train_ppo.py (PERF.md has the H100
+numbers).
 
 Multi-chip: pass a mesh and the kernel fans out one-per-device with the
 learner's gradient all-reduce inserted by GSPMD.
@@ -16,18 +17,20 @@ import numpy as np
 
 from simglucose_tpu.envs.build import cohort_names, make_env
 from simglucose_tpu.models.uva_padova import basal_rate
+from simglucose_tpu.ops.backend import XLA, kernel_mode
 from simglucose_tpu.ops.pallas_rollout import pack_params
 from simglucose_tpu.rl.fused import init_fused_state, make_fused_train_loop
 from simglucose_tpu.rl.policy import init_policy
 from simglucose_tpu.rl.ppo import PPOConfig, make_optimizer
 
-B = 8192  # patients on one chip; the kernel needs multiples of 4096
+B = 8192  # patients on one GPU
 BLOCKS, ITERS_PER_BLOCK = 6, 100  # 600 iterations, one dispatch per block
 HIDDEN = 64
 
-on_tpu = jax.default_backend() == "tpu"
-if not on_tpu:
-    # interpret mode is for correctness work, not speed — shrink
+# a GPU compiles the kernel; a CPU runs it in the Pallas interpreter,
+# which is for correctness work, not speed — shrink
+interpret = kernel_mode() == XLA
+if interpret:
     B, BLOCKS, ITERS_PER_BLOCK = 128, 2, 2
 
 _, params = make_env(cohort_names(B), batch=True, dtype=np.float32)
@@ -36,24 +39,19 @@ packed = pack_params(params.patient, basal_rate(params.patient))
 key = jax.random.PRNGKey(0)
 cfg = PPOConfig(
     rollout_steps=64, epochs=2, minibatches=4, ent_coef=0.01, lr=1e-3,
-    # the learner half also runs as a pallas kernel (forward + PPO loss +
-    # hand-derived backward in one pass, ops/pallas_ppo_learner.py) —
-    # measured ~1.2x the whole-iteration throughput vs the XLA learner
-    pallas_learner=on_tpu,
 )
 policy = init_policy(
     jax.random.fold_in(key, 1), hidden=HIDDEN, act="relu",  # the kernel trunk
     init_log_std=cfg.init_log_std, init_mu_bias=-2.2,  # safe cold start
 )
 ts = init_fused_state(policy, make_optimizer(cfg).init(policy), B, key)
-# K train iterations per dispatch: host round trips cost ~100x the 3ms
-# device iteration, so scan them inside one program.  The dense neg-risk
+# K train iterations per dispatch: scan them inside one program so the
+# host dispatches once per block.  The dense neg-risk
 # reward is the robust training objective (see tests/test_ppo.py notes).
 loop = jax.jit(
     make_fused_train_loop(
-        cfg, B, ITERS_PER_BLOCK, hidden=HIDDEN, interpret=not on_tpu,
+        cfg, B, ITERS_PER_BLOCK, hidden=HIDDEN, interpret=interpret,
         reward_kind="neg_risk",
-        pallas_overrides={} if on_tpu else dict(block_rows=1, t_chunk=2),
     ),
     donate_argnums=(1,),
 )

@@ -3,7 +3,7 @@
 Capability parity with the reference's analysis layer
 (reference: analysis/report.py:14-268), re-designed array-first: every metric
 is a vectorized function over a ``[T, B]`` glucose array (the natural output
-shape of the scan-stacked TPU rollout), with a thin pandas/matplotlib layer
+shape of the scan-stacked rollout), with a thin pandas/matplotlib layer
 for the reference's DataFrame/figure outputs.  The heavy math runs on
 device-sized batches without per-patient Python loops.
 

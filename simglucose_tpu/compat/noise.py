@@ -1,7 +1,7 @@
 """Bit-exact reference CGM noise pregeneration (host-side, numpy MT19937).
 
 The reference's noise chain (sensor/noise_gen.py) is driven by
-``np.random.RandomState`` (Mersenne Twister), which has no TPU analog.  For
+``np.random.RandomState`` (Mersenne Twister), which has no on-device analog.  For
 verification configs — where traces must match the reference bitwise — the
 noise stream is pregenerated here on host with the exact same sampling
 semantics and shipped to the device as an exogenous array

@@ -1,4 +1,4 @@
-"""Core pytree types for the TPU-native simglucose framework.
+"""Core pytree types for the simglucose framework.
 
 Everything in this framework is a pure function over explicit pytree state.
 These NamedTuples are the state/parameter schemas.  All array fields carry a

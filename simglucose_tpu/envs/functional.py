@@ -1,6 +1,6 @@
 """The closed-loop T1D environment as pure functions over pytree state.
 
-TPU-native re-design of the reference's ``T1DSimEnv``
+Functional re-design of the reference's ``T1DSimEnv``
 (reference: simulation/env.py:36-180):
 
   * ``mini_step``'s 1-minute inner loop (env.py:48-64) is a statically

@@ -1,4 +1,4 @@
-"""Gymnasium adapter: drop-in RL API over the functional TPU env.
+"""Gymnasium adapter: drop-in RL API over the functional env.
 
 Mirrors the reference's gym wrapper (reference: envs/simglucose_gym_env.py:18-85)
 with the modern Gymnasium API, plus an on-device vectorized env that the
@@ -342,7 +342,7 @@ class T1DSimGymEnv(gymnasium.Env if gymnasium else object):
 
 class T1DSimVectorEnv(gymnasium.vector.VectorEnv if gymnasium else object):
     """On-device vectorized env: B auto-resetting patients in ONE compiled
-    XLA program per step — the TPU-native replacement for running B gym envs
+    XLA program per step — the on-device replacement for running B gym envs
     in OS processes (reference: sim_engine.py:65-76 via pathos).
 
     Episodes auto-reset on termination OR horizon truncation
@@ -354,8 +354,8 @@ class T1DSimVectorEnv(gymnasium.vector.VectorEnv if gymnasium else object):
     simglucose_gym_env.py:48-51) and carries the terminal step in
     ``info["final_observation"][i]`` / ``info["final_info"][i]``.
 
-    Per-``step()`` host dispatch costs ~ms over a remote-TPU runtime; use
-    :meth:`step_n` to run N policy-driven steps in ONE compiled dispatch.
+    Every ``step()`` pays one host dispatch; use :meth:`step_n` to run N
+    policy-driven steps in ONE compiled dispatch.
     """
 
     metadata = {"render_modes": []}
@@ -488,8 +488,8 @@ class T1DSimVectorEnv(gymnasium.vector.VectorEnv if gymnasium else object):
         ``policy(obs)`` maps the [B, 1] CGM observation (a jnp array, traced)
         to [B, 1] (or [B]) basal actions — it runs INSIDE the jitted scan, so
         an external RL loop pays one host dispatch per ``n`` steps instead of
-        per step (per-step dispatch over a remote-TPU runtime is ~ms; the
-        compiled step itself is ~µs).  Auto-reset/truncation semantics are
+        per step (a dispatch costs far more than the compiled step
+        itself).  Auto-reset/truncation semantics are
         identical to :meth:`step`.
 
         Returns ``(obs [n,B,1], rewards [n,B], terminated [n,B],

@@ -114,12 +114,11 @@ def rollout(
     native/random modes.  The planes are computed by the bit-exact
     pregenerators (:func:`~simglucose_tpu.ops.noise.noise_pregenerate` /
     :func:`~simglucose_tpu.scenario.meal.meals_pregenerate`) and fed to the
-    scan as **xs** per-step slices.  NOTE: on TPU this is measured SLOWER
-    than the streaming path (7-9M vs 23M steps/s at B=4096) — the XLA scan
-    body is bound by fusion scheduling, not by the stream draws, and the
-    vmapped xs feeding adds strided per-step slices — and only ~8% faster
-    on CPU; it exists as a verified building block (the pregenerators also
-    back the bit-exactness tests), not as the default fast path.  The
+    scan as **xs** per-step slices.  It exists as a verified building
+    block (the pregenerators also back the bit-exactness tests), not as the
+    default fast path: the scan body is bound by its many small fusions,
+    not by the stream draws, and the vmapped xs feeding adds strided
+    per-step slices.  The
     returned final EnvState's sensor-lattice/scenario internals are frozen
     at their reset values (the exogenous planes replace them).
     """

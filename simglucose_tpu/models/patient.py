@@ -1,6 +1,6 @@
 """Functional T1D patient: meal state machine + one-minute ODE advance.
 
-This is the TPU-native replacement for the reference's stateful
+This is the functional replacement for the reference's stateful
 ``T1DPatient.step`` (reference: patient/t1dpatient.py:82-116) and
 ``_announce_meal`` (:222-236).  The eating state machine becomes branchless
 ``jnp.where`` updates over explicit :class:`PatientState` pytrees, so it

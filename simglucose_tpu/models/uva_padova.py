@@ -1,4 +1,4 @@
-"""UVA/Padova 2008 glucose-insulin kinetics, TPU-native.
+"""UVA/Padova 2008 glucose-insulin kinetics as batched JAX functions.
 
 The 13-state ODE right-hand side below implements the same physiology as the
 reference's ``T1DPatient.model`` (reference: patient/t1dpatient.py:118-208),
@@ -78,9 +78,9 @@ def model_rhs_parts(
     """The RHS on a TUPLE of 13 per-state arrays.
 
     This form is layout-agnostic: the env path stacks states on a trailing
-    axis ([..., 13]), while the pallas fast path keeps each state as its own
-    lane-major [rows, 128] tile (a trailing axis of 13 would waste 90% of
-    each TPU register tile).  Single source of truth for the physiology.
+    axis ([..., 13]), while the rollout kernel keeps each state as its own
+    [block] vector, one patient per lane.  Single source of truth for the
+    physiology.
     """
     p = params
     x0, x1, x2, x3, x4, x5, x6, x7, x8, x9, x10, x11, x12 = xs
@@ -170,10 +170,8 @@ _DP_B = (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0)
 
 
 def _axpy(x, a, k):
-    """x + a*k over a pytree of state components (works on a bare array or
-    the 13-tuple form — TPU layouts want the tuple: a [B, 13] elementwise op
-    gets tiled as 13 separate [B, 1] columns at (1, 128), using 1 of 8 VPU
-    sublanes, while 13 [B] arrays each fill whole (8, 128) vregs)."""
+    """x + a*k over a pytree of state components (a bare array or the
+    13-tuple form)."""
     return jax.tree.map(lambda xi, ki: xi + a * ki, x, k)
 
 
@@ -225,10 +223,8 @@ def integrate_minute(
     ``substeps``/``method`` are static; the substep loop is unrolled so XLA
     fuses the whole minute into one kernel.
 
-    Stage arithmetic runs on the packed ``[..., 13]`` array — measured
-    FASTER on TPU than a 13-tuple state form (22.9M vs 15.8M steps/s at
-    B=4096): one fused op over the packed state beats 13 small per-component
-    fusions, each of which pays its own scheduling overhead.
+    Stage arithmetic runs on the packed ``[..., 13]`` array: one fused op
+    over the packed state instead of 13 small per-component fusions.
     """
     stepper = _STEPPERS[method]
     h = jnp.asarray(1.0 / substeps, dtype=x.dtype)

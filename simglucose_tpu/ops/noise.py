@@ -1,4 +1,4 @@
-"""Streaming CGM noise, TPU-native.
+"""Streaming CGM noise as batched JAX functions.
 
 The reference generates colored CGM noise as (sensor/noise_gen.py):
   1. an AR(1) recursion on a 15-min lattice: e[0] = randn();

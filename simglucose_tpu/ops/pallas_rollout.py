@@ -1,30 +1,36 @@
-"""Pallas fast path: the ENTIRE closed-loop rollout as one TPU kernel.
+"""Pallas fast path: the whole closed-loop rollout as one GPU kernel.
 
-The XLA scan path tops out ~24M env-steps/s/chip regardless of batch size:
-every env step crosses many fusion boundaries (scenario, 3 ODE minutes,
-noise, risk, reset-merge), each a separate kernel whose state round-trips
-HBM.  This kernel keeps the FULL simulator state in VMEM/registers for a
-whole T-step rollout — per-step HBM traffic is only the trajectory outputs —
-and runs the physics on lane-major [rows, 128] tiles via the same
-:func:`simglucose_tpu.models.uva_padova.model_rhs_parts` physiology the env
-path uses.
+The XLA scan path runs every env step as ~40 small fusions (scenario, three
+ODE minutes, noise, risk, reset-merge); each one round-trips the ~70 state
+words per patient through device memory and is its own launch inside the
+rollout's ``while`` loop.  This kernel keeps the full simulator state in
+registers for the whole horizon: one program per block of ``block``
+patients, an in-kernel ``fori_loop`` over env steps with the state as the
+loop carry, and one coalesced store per trajectory plane per step.  The
+physics is the same :func:`simglucose_tpu.models.uva_padova.model_rhs_parts`
+the env path uses, on [block] vectors (one patient per lane).
+
+The kernel is written for Pallas' Triton route (``backend="triton"``); on
+the CPU it runs under ``interpret=True`` for the tests.
 
 Scope (the high-throughput cohort-simulation configuration — the analog of
 the reference's batch_sim use case, sim_engine.py:65-76):
-  * rk4, substeps=1, f32, Dexcom-style static sample_time
+  * rk4, substeps=1, f32, static sensor sample_time
   * native CGM noise law (AR(1) at the 15-min lattice -> Johnson-SU ->
-    Catmull-Rom), driven by the TPU hardware PRNG instead of threefry
+    Catmull-Rom), driven by an in-kernel counter-based generator
   * native random daily meal scenario law (same distributions as
     scenario/meal.py, reference scenario_gen.py:33-60)
   * gym-style auto-reset with random start hour + random initial BG
   * built-in controllers: PID (gains as static floats), basal-bolus therapy
-    (per-patient Quest CR/CF planes), or constant basal
-  * reward = risk_diff (reference env.py:27-33)
+    (per-patient Quest CR/CF planes), constant basal, or the Gaussian MLP
+    policy of rl/policy.py ('nn')
+  * reward = risk_diff (reference env.py:27-33) or neg_risk
 
 For custom controllers/rewards/sensors use the XLA path; both paths share
 the same physics and parameter tables.  Statistical equivalence between the
 two paths is asserted in tests/test_pallas_rollout.py; the deterministic
-(no-noise/no-meal/no-reset) configuration must match env_step EXACTLY.
+(no-noise/no-meal/no-reset) configuration must match env_step to f32
+rounding.
 """
 from __future__ import annotations
 
@@ -34,15 +40,16 @@ import math
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from simglucose_tpu.core.types import PatientParams
 from simglucose_tpu.models.uva_padova import EAT_RATE, model_rhs_parts
 
-LANES = 128
 MDL_SAMPLE_TIME = 15  # noise lattice spacing, min (noise_gen.py:17)
 MINUTES_PER_DAY = 1440
 _LOG_2PI = math.log(2.0 * math.pi)
+# smallest program: 16 patients (a warp is 32 threads)
+MIN_BLOCK = 16
 
 # Meal-slot law (scenario/meal.py, reference scenario_gen.py:36-44)
 _MEAL_PROB = (0.95, 0.3, 0.95, 0.3, 0.95, 0.3)
@@ -59,13 +66,65 @@ _AMOUNT_SIGMA = (10.0, 5.0, 10.0, 5.0, 10.0, 5.0)
 _PARAM_FIELDS = [f for f in PatientParams._fields if f != "x0"]
 NP_PLANES = len(_PARAM_FIELDS) + 13 + 3
 
+# Simulator state planes ([NS_F, B] f32 + [NS_I, B] i32) — the persistent
+# state a caller threads between calls.  Names, in plane order:
+#   x0..x12 ODE states; planned/last_CHO/eating/last_Qsto/foodtaken the
+#   eating state machine; last_CGM (ZOH value between samples), e (AR(1)
+#   state), lat0..3 (noise lattice); mt*/ma* the day's meal plan;
+#   pid_integ/pid_prev; prev_risk (risk of the previous CGM, for
+#   risk_diff); prev_cho (the previous step's averaged CHO — the BB
+#   controller's meal announcement); ctrl_prev (the observation the
+#   controller acts on — equals the previous CGM except at episode start,
+#   where the env's reset draws TWO noise pops, env.py:126,142); c* the
+#   cached auto-reset draw (refreshed every regen_every steps); ins_prev
+#   (previous delivered insulin), ctrl_pprev (observation before
+#   ctrl_prev, the 'nn' trend feature), iob (insulin on board).
+_F_NAMES = (
+    tuple(f"x{i}" for i in range(13))
+    + ("planned", "last_CHO", "eating", "last_Qsto", "foodtaken",
+       "last_CGM", "e", "lat0", "lat1", "lat2", "lat3")
+    + tuple(f"mt{s}" for s in range(6))
+    + tuple(f"ma{s}" for s in range(6))
+    + ("pid_integ", "pid_prev", "prev_risk", "prev_cho", "ctrl_prev")
+    + tuple(f"cx{i}" for i in range(13))
+    + ("c_e", "clat0", "clat1", "clat2", "clat3", "c_cgm0", "c_risk0",
+       "ins_prev", "ctrl_pprev", "iob")
+)
+#   t_min (episode minutes), start_min, day, seg, lat_next (next lattice
+#   index), n_samp (CGM samples drawn), c_start (cached reset start_min)
+_I_NAMES = ("t_min", "start_min", "day", "seg", "lat_next", "n_samp",
+            "c_start")
+NS_F = len(_F_NAMES)
+NS_I = len(_I_NAMES)
+assert NS_F == 64 and NS_I == 7
+# the auto-reset draw cache (what _reset_cache returns)
+_CACHE_NAMES = [
+    n for n in _F_NAMES if n.startswith(("cx", "c_", "clat"))
+] + ["c_start"]
+
+# Random draws: every uniform is hash(lane key, counter) with counter =
+# (global_step + 1) * _SITES + site (global_step = -1 for the episode
+# init).  Sites [0, _PAIR_SITE) are the init/regen draws in trace order;
+# the per-step noise pair and the 'nn' action pair have fixed sites.
+_SITES = 64
+_PAIR_SITE = 56
+_NOISE_PAIR = _PAIR_SITE
+_ACTION_PAIR = _PAIR_SITE + 2
+
+# Rows of the packed policy weights (pack_policy_weights): w1 (padded to
+# 16 rows), then one row each, then w2 from _W2_ROW.
+_B1_ROW, _WMU_ROW, _WV_ROW, _B2_ROW, _SCAL_ROW = 16, 17, 18, 19, 20
+_W2_ROW = 32
+
 
 @dataclasses.dataclass(frozen=True)
 class PallasRolloutConfig:
     sample_time: int = 3
     n_steps: int = 256  # env steps per call
-    block_rows: int = 32  # patients per block = block_rows * 128
-    t_chunk: int = 32  # env steps per grid step (traj VMEM block)
+    # patients per kernel program (a power of two; smaller batches shrink
+    # it, see block_for) and warps per program
+    block: int = 128
+    num_warps: int = 4
     # sensor (Dexcom row of params/sensor_params.csv)
     pacf: float = 0.7
     gamma: float = -0.5444
@@ -82,14 +141,14 @@ class PallasRolloutConfig:
     min_bolus: float = 0.0
     max_bolus: float = 30.0
     # controller: 'pid' | 'bb' | 'const' | 'nn'.  'nn' runs the Gaussian
-    # MLP policy of rl/policy.py INSIDE the kernel (relu trunk, matmuls on
-    # the MXU, action sampling from the in-kernel PRNG) — the pallas-fused
-    # PPO actor (rl/fused.py).  Weights arrive as an extra input built by
+    # MLP policy of rl/policy.py INSIDE the kernel (relu trunk, action
+    # sampling from the in-kernel generator) — the fused PPO actor
+    # (rl/fused.py).  Weights arrive as an extra input built by
     # :func:`pack_policy_weights`; the kernel additionally outputs the raw
     # pre-squash action and the controller's observation inputs so the
     # learner can recompute logp/value outside (one batched XLA forward).
     controller: str = "pid"
-    nn_hidden: int = 64  # MLP width ('nn' controller); 64 or 128
+    nn_hidden: int = 64  # MLP width ('nn' controller); a power of two
     nn_action_scale: float = 0.2  # basal = sigmoid(raw) * scale (policy.py)
     # scale the 'nn' action by the patient's own basal rate (u2ss*BW/6000,
     # the plane pack_params already ships): basal = sigmoid(raw) * scale *
@@ -111,35 +170,14 @@ class PallasRolloutConfig:
     # basal_bolus_ctrller.py:34-80).  A zero-output policy IS BB therapy;
     # bolus-sized doses are reachable (the absolute sigmoid decoder's
     # ceiling caps them — BASELINE.md round-5).  pack_params MUST be given
-    # quest= for this config (the CR/CF planes default to ones otherwise).
+    # quest= for this config (the CR/CF planes default to a sentinel).
     # nn_scale_by_basal is ignored; nn_action_scale is the log-range.
     nn_decoder: str = "sigmoid"
-    # nn_batched_mlp=True: issue the policy trunk as ONE [H,7]x[7,R,128]
-    # dot_general over all R sublane rows instead of R separate
-    # [H,7]x[7,128] matmuls per step (VERDICT r3 item 5's MXU batching).
-    # Same values; flag-gated so the per-row form remains measurable.
-    nn_batched_mlp: bool = False
-    # nn_emit_learner_rows=True: instead of the raw/octrl/oins/ocho/oprev/
-    # oiob observation planes, the kernel emits the PPO learner's
-    # feature-major buffer DIRECTLY — one [10, n_steps, rows, 128] output
-    # whose rows are [0:7] the featurized observation, [7] the VALUE head
-    # (the learner's forward nulls that row via its zero-padded w1 column),
-    # [8] the raw pre-squash action, [9] the behavior log-prob — plus the
-    # tail observation's value in the reset rows.  This removes the
-    # XLA prep stage (featurize + logp/value forwards + pack) between the
-    # rollout and the fused learner kernel entirely: after GAE (a [T, B]
-    # associative scan) the learner gathers minibatches straight from this
-    # buffer (ops/pallas_ppo_learner.ppo_grad_step_gather2).  The value
-    # head rides the same in-kernel trunk as mu (one extra [H,1] read-out
-    # per step); weights must come from pack_policy_weights (which always
-    # ships w_v/b_v).
-    nn_emit_learner_rows: bool = False
     # persistent_state=True: the full simulator state streams in/out of the
-    # kernel as HBM arrays instead of living in per-call scratch, so
-    # consecutive calls CONTINUE episodes (the PPO trainer's env-state carry
-    # across iterations).  run() then takes (state_f, state_i, init) and
-    # returns them updated; init=1 ignores the incoming state and draws
-    # fresh episodes.
+    # kernel as device arrays, so consecutive calls CONTINUE episodes (the
+    # PPO trainer's env-state carry across iterations).  run() then takes
+    # (state_f, state_i, init) and returns them updated; init=1 ignores the
+    # incoming state and draws fresh episodes.
     persistent_state: bool = False
     pid_p: float = -1e-4
     pid_i: float = -1e-7
@@ -182,31 +220,26 @@ class PallasRolloutConfig:
     # meal scenarios on the kernel fast path.  Under autoreset the schedule
     # replays from each new episode's minute 0.
     scenario_kind: str = "random"
-    # 'hw': TPU hardware PRNG (fastest; real TPUs only).  'sw': counter-based
-    # in-kernel generator (murmur-mix over lane/seed/call indices) — same
-    # stochastic law, works in CPU interpret mode, so the stochastic kernel
-    # path has CI coverage (tests/test_pallas_rollout.py).
-    prng: str = "hw"
     # Rare-path sampling cadence: the day-rollover meal-plan redraw and the
-    # auto-reset value draw run only on every regen_every-th unrolled step
-    # instead of branchlessly every step (they are ~half the per-step
-    # transcendental budget).  Deferring a midnight redraw is OBSERVATIONALLY
-    # EXACT for up to 288 simulated minutes: meal-slot times all lie at
-    # >= 300 min-of-day (reference scenario_gen.py:39, breakfast lower bound
-    # 5 am), so neither the outgoing nor the incoming plan can fire during
-    # the deferral window.  Reset draws are cached per lane at the same
+    # auto-reset value draw run only on every regen_every-th (global) step
+    # instead of every step (they are ~half the per-step transcendental
+    # budget).  Deferring a midnight redraw is OBSERVATIONALLY EXACT for up
+    # to 288 simulated minutes: meal-slot times all lie at >= 300
+    # min-of-day (reference scenario_gen.py:39, breakfast lower bound 5 am),
+    # so neither the outgoing nor the incoming plan can fire during the
+    # deferral window.  Reset draws are cached per lane at the same
     # cadence; a lane terminating twice within one window reuses its cached
     # draw (episodes ~125 steps at the default laws vs a window of
     # regen_every steps — negligible correlation).  Constraint:
     # regen_every * sample_time <= 288.  Set to 1 to restore per-step draws.
     regen_every: int = 8
     # exogenous_noise=True: CGM noise comes from caller-supplied planes
-    # (reset_noise [2, rows, 128] + step_noise [n_steps, rows, 128]) indexed
-    # exactly like the env path's EnvParams.noise_seq (devices/cgm.py) — 2
-    # reset pops then one per step.  This is how the kernel is
-    # golden-verified against the env path (and hence the reference,
-    # sensor/noise_gen.py:15-69) with IDENTICAL noise, not just
-    # distribution-matched.  Requires autoreset=False.
+    # (reset_noise [2, B] + step_noise [n_steps, B]) indexed exactly like
+    # the env path's EnvParams.noise_seq (devices/cgm.py) — 2 reset pops
+    # then one per step.  This is how the kernel is golden-verified against
+    # the env path (and hence the reference, sensor/noise_gen.py:15-69)
+    # with IDENTICAL noise, not just distribution-matched.  Requires
+    # autoreset=False.
     exogenous_noise: bool = False
 
 
@@ -231,10 +264,27 @@ def config_for_sensor(sensor: str = "Dexcom", **overrides) -> "PallasRolloutConf
     return PallasRolloutConfig(**fields)
 
 
+def _is_pow2(n: int) -> bool:
+    return n >= 1 and (n & (n - 1)) == 0
+
+
+def block_for(batch: int, block: int) -> int:
+    """Patients per program for a ``batch``-patient call: the configured
+    ``block``, shrunk to the next power of two >= batch for small cohorts
+    (never below MIN_BLOCK) so a 30-patient run is one 32-lane program, not
+    a 128-lane one that is 77% padding."""
+    if not _is_pow2(block) or block < MIN_BLOCK:
+        raise ValueError(
+            f"block must be a power of two >= {MIN_BLOCK}; got {block}"
+        )
+    small = max(MIN_BLOCK, 1 << max(0, (batch - 1).bit_length()))
+    return min(block, small)
+
+
 def pack_params(
     params: PatientParams, basal: jnp.ndarray, quest=None
 ) -> jnp.ndarray:
-    """PatientParams [B] -> packed [NP_PLANES, rows, 128] planes.
+    """PatientParams [B] -> packed [NP_PLANES, B] planes.
 
     ``quest`` (any object with per-patient ``.CR``/``.CF`` arrays, e.g.
     :class:`simglucose_tpu.core.types.QuestParams`) is required for the
@@ -254,31 +304,23 @@ def pack_params(
     sentinel = jnp.full_like(jnp.asarray(basal, jnp.float32), -1.0)
     cols += [basal]
     cols += [quest.CR, quest.CF] if quest is not None else [sentinel, sentinel]
-    flat = jnp.stack([jnp.asarray(c, jnp.float32) for c in cols])  # [NP, B]
-    B = flat.shape[1]
-    if B % LANES:
-        raise ValueError(f"batch {B} must be a multiple of {LANES}")
-    return flat.reshape(NP_PLANES, B // LANES, LANES)
+    return jnp.stack([jnp.asarray(c, jnp.float32) for c in cols])  # [NP, B]
 
 
 def packed_basal(packed: jnp.ndarray) -> jnp.ndarray:
-    """The per-patient basal plane of :func:`pack_params`, flattened back to
-    [B] — the fused learner's featurize input (rl/policy.py
-    featurize_parts needs the patient basal; the kernel reads the same
-    plane in-kernel)."""
-    return packed[len(_PARAM_FIELDS) + 13].reshape(-1)
+    """The per-patient basal plane of :func:`pack_params` ([B]) — the fused
+    learner's featurize input (rl/policy.py featurize_parts needs the
+    patient basal; the kernel reads the same plane in-kernel)."""
+    return packed[len(_PARAM_FIELDS) + 13]
 
 
 def pack_policy_weights(params) -> jnp.ndarray:
-    """PolicyParams (rl/policy.py) -> one [H, H+16] f32 buffer for the
+    """PolicyParams (rl/policy.py) -> one [32 + H, H] f32 buffer for the
     kernel's 'nn' controller.
 
-    Column layout (H = hidden width, OBS_DIM = 7): [0:7] w1^T | [7] b1 |
-    [8] w_mu | [9] rows 0/1/2 = (b_mu, log_std, b_v) | [10] w_v |
-    [12:12+H] w2^T | [12+H] b2.  The value head (w_v at col 10, b_v at
-    buf[2, 9]) feeds the ``nn_emit_learner_rows`` config, where the kernel
-    computes values and log-probs in-kernel; plain 'nn' configs read only
-    the policy-mean columns.
+    Row layout (H = hidden width, OBS_DIM = 7): [0:7] w1 (rows 7..15 zero)
+    | [16] b1 | [17] w_mu | [18] w_v | [19] b2 | [20, 0:3] (b_mu, log_std,
+    b_v) | [32:32+H] w2.
 
     The kernel's trunk is hardwired relu; params carrying any other static
     ``act`` metadata (rl/policy.py PolicyParams) are rejected so a
@@ -297,34 +339,35 @@ def pack_policy_weights(params) -> jnp.ndarray:
             f"(rl/policy.py featurize_parts); got w1 with obs dim "
             f"{params.w1.shape[0]}"
         )
-    buf = jnp.zeros((H, H + 16), jnp.float32)
-    buf = buf.at[:, 0:7].set(params.w1.T.astype(jnp.float32))
-    buf = buf.at[:, 7].set(params.b1.astype(jnp.float32))
-    buf = buf.at[:, 8].set(params.w_mu[:, 0].astype(jnp.float32))
-    buf = buf.at[0, 9].set(params.b_mu[0].astype(jnp.float32))
-    buf = buf.at[1, 9].set(params.log_std[0].astype(jnp.float32))
-    buf = buf.at[2, 9].set(params.b_v[0].astype(jnp.float32))
-    buf = buf.at[:, 10].set(params.w_v[:, 0].astype(jnp.float32))
-    buf = buf.at[:, 12:12 + H].set(params.w2.T.astype(jnp.float32))
-    buf = buf.at[:, 12 + H].set(params.b2.astype(jnp.float32))
+    f32 = jnp.float32
+    buf = jnp.zeros((_W2_ROW + H, H), f32)
+    buf = buf.at[0:7].set(params.w1.astype(f32))
+    buf = buf.at[_B1_ROW].set(params.b1.astype(f32))
+    buf = buf.at[_WMU_ROW].set(params.w_mu[:, 0].astype(f32))
+    buf = buf.at[_WV_ROW].set(params.w_v[:, 0].astype(f32))
+    buf = buf.at[_B2_ROW].set(params.b2.astype(f32))
+    buf = buf.at[_SCAL_ROW, 0].set(params.b_mu[0].astype(f32))
+    buf = buf.at[_SCAL_ROW, 1].set(params.log_std[0].astype(f32))
+    buf = buf.at[_SCAL_ROW, 2].set(params.b_v[0].astype(f32))
+    buf = buf.at[_W2_ROW:].set(params.w2.astype(f32))
     return buf
 
 
-def _unpack_params(pref, rs: slice) -> tuple:
-    """Packed planes ref -> (PatientParams-like namespace of [R,128], x0 tuple,
-    (basal, CR, CF))."""
-    vals = {f: pref[i, rs] for i, f in enumerate(_PARAM_FIELDS)}
+def _unpack_params(pref) -> tuple:
+    """Packed planes ref -> (PatientParams-like namespace of [block], x0
+    tuple, (basal, CR, CF))."""
+    vals = {f: pref[i] for i, f in enumerate(_PARAM_FIELDS)}
     n = len(_PARAM_FIELDS)
-    x0 = tuple(pref[n + i, rs] for i in range(13))
-    basal = pref[n + 13, rs]
+    x0 = tuple(pref[n + i] for i in range(13))
+    basal = pref[n + 13]
     # pack_params fills CR/CF with a finite -1.0 sentinel when quest is
     # omitted (real Quest values are strictly positive); convert to NaN
     # here so quest-READING configs still poison their doses loudly while
     # the packed array itself stays NaN-free (multi-process device_put
     # compares hosts' values with ==, where NaN != NaN).  Dead code for
     # configs that never touch the planes.
-    CR = pref[n + 14, rs]
-    CF = pref[n + 15, rs]
+    CR = pref[n + 14]
+    CF = pref[n + 15]
     CR = jnp.where(CR > 0, CR, jnp.nan)
     CF = jnp.where(CF > 0, CF, jnp.nan)
     # PatientParams requires x0; give it a dummy (kernel never uses .x0)
@@ -333,63 +376,70 @@ def _unpack_params(pref, rs: slice) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# In-kernel RNG helpers
+# In-kernel random numbers
 # ---------------------------------------------------------------------------
 
 
-class _HwRng:
-    """TPU hardware PRNG (fastest; no CPU interpret-mode lowering).
-    ``pltpu.prng_seed`` must have been called before the first draw."""
+def _fmix32(x):
+    """murmur3's 32-bit finalizer: a bijection with full avalanche."""
+    x = x ^ (x >> 16)
+    x = x * jnp.uint32(0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = x * jnp.uint32(0xC2B2AE35)
+    return x ^ (x >> 16)
 
-    def bits(self, shape):
-        # prng_random_bits yields int32 — bitcast to uint32 BEFORE shifting,
-        # or the arithmetic shift drags sign bits into the exponent (NaNs)
-        return pltpu.bitcast(pltpu.prng_random_bits(shape), jnp.uint32)
+
+def _as_u32(x):
+    return jax.lax.bitcast_convert_type(x.astype(jnp.int32), jnp.uint32)
 
 
-class _SwRng:
-    """Counter-based software PRNG: murmur3-finalizer mix over
-    (seed, call counter, element index).
+def lane_keys(seed, lanes):
+    """Per-lane stream keys: hash of (seed, global lane index).  For a
+    fixed seed the map lane -> key is a bijection, so no two lanes of one
+    call share a stream."""
+    s = _fmix32(_as_u32(seed) * jnp.uint32(0x9E3779B9) + jnp.uint32(0x7F4A7C15))
+    return _fmix32(s ^ (_as_u32(lanes) * jnp.uint32(0x85EBCA6B)))
 
-    The kernel body is fully unrolled at trace time, so each draw site gets
-    a unique static counter; the per-(block, t_chunk) seed decorrelates grid
-    steps exactly like the hw path's ``prng_seed`` call.  Statistically
-    adequate for the simulator's noise/meal/reset laws (two fmix32 rounds);
-    runs everywhere (VPU-friendly uint32 ops, CPU interpret mode included).
-    """
 
-    def __init__(self, seed):
-        self._seed = seed.astype(jnp.uint32)
-        self._n = 0
+def draw_bits(key, ctr):
+    """32 random bits per lane for draw counter ``ctr`` (uint32 scalar).
+    For a fixed lane key, distinct counters give distinct outputs
+    (``ctr * odd`` and both mixes are bijections)."""
+    x = key ^ (ctr * jnp.uint32(0x632BE59B))
+    return _fmix32(_fmix32(x) + key)
 
-    def bits(self, shape):
+
+class _Rng:
+    """Draw sites of one (lane key, global step): the n-th ``bits`` call
+    traced for this step uses counter (step + 1) * _SITES + site0 + n."""
+
+    def __init__(self, key, step, site0: int = 0, limit: int = _PAIR_SITE):
+        self._key = key
+        self._base = _as_u32(step + 1) * jnp.uint32(_SITES)
+        self._n = site0
+        self._limit = limit
+
+    def bits(self):
+        if self._n >= self._limit:
+            raise AssertionError("too many draws for one step's site budget")
+        ctr = self._base + jnp.uint32(self._n)
         self._n += 1
-        idx = jax.lax.broadcasted_iota(
-            jnp.uint32, shape, 0
-        ) * jnp.uint32(shape[1]) + jax.lax.broadcasted_iota(jnp.uint32, shape, 1)
-        x = idx * jnp.uint32(0x9E3779B9)
-        x = x ^ (self._seed * jnp.uint32(0x85EBCA6B))
-        x = x + jnp.uint32((self._n * 0x632BE59B) & 0xFFFFFFFF)
-        for _ in range(2):  # murmur3 fmix32 x2
-            x = x ^ (x >> 16)
-            x = x * jnp.uint32(0x85EBCA6B)
-            x = x ^ (x >> 13)
-            x = x * jnp.uint32(0xC2B2AE35)
-            x = x ^ (x >> 16)
-        return x
+        return draw_bits(self._key, ctr)
 
 
-def _uniform(rng, shape):
+def _uniform(rng):
     """U(0,1) in [1e-7, 1): random bits -> float via the exponent trick."""
-    bits = rng.bits(shape)
-    f = pltpu.bitcast((bits >> 9) | jnp.uint32(0x3F800000), jnp.float32)
+    bits = rng.bits()
+    f = jax.lax.bitcast_convert_type(
+        (bits >> 9) | jnp.uint32(0x3F800000), jnp.float32
+    )
     return jnp.maximum(f - 1.0, 1e-7)  # [1.0, 2.0) -> [1e-7, 1.0)
 
 
-def _normal_pair(rng, shape):
+def _normal_pair(rng):
     """Two N(0,1) draws per lane via Box-Muller."""
-    u1 = _uniform(rng, shape)
-    u2 = _uniform(rng, shape)
+    u1 = _uniform(rng)
+    u2 = _uniform(rng)
     r = jnp.sqrt(-2.0 * jnp.log(u1))
     th = (2.0 * math.pi) * u2
     return r * jnp.cos(th), r * jnp.sin(th)
@@ -449,12 +499,22 @@ def _ndtri(p):
 
 
 # ---------------------------------------------------------------------------
-# In-kernel simulator pieces (all on [R, 128] tiles)
+# In-kernel simulator pieces (all on [block] vectors)
 # ---------------------------------------------------------------------------
 
 
+def round_half_even(x):
+    """``jnp.round`` (round half to even) from floor — the Triton route
+    has no rounding primitive.  Exact for |x| < 2**22, far above any
+    pump or meal value rounded here."""
+    r = jnp.floor(x + 0.5)
+    tie = (r - x) == 0.5
+    odd = (r - 2.0 * jnp.floor(r * 0.5)) != 0.0
+    return jnp.where(tie & odd, r - 1.0, r)
+
+
 def _johnson(cfg: PallasRolloutConfig, x):
-    # sinh via exp (Mosaic has no sinh lowering)
+    # sinh via exp (one transcendental instead of sinh's two)
     z = (x - cfg.gamma) / cfg.delta
     ez = jnp.exp(z)
     return cfg.xi + cfg.lam * 0.5 * (ez - 1.0 / ez)
@@ -475,33 +535,33 @@ def _catmull(l0, l1, l2, l3, u):
 
 def _quantize(amount, inc, lo, hi):
     """Pump quantization (reference actuator/pump.py:23-39)."""
-    return jnp.clip(jnp.round(amount * 6000.0 / inc) * inc / 6000.0, lo, hi)
+    return jnp.clip(
+        round_half_even(amount * 6000.0 / inc) * inc / 6000.0, lo, hi
+    )
 
 
-def _draw_meal_plan(cfg: PallasRolloutConfig, rng, shape):
-    """One day's meal plan: (times[6 of shape], amounts[6 of shape]).
+def _draw_meal_plan(cfg: PallasRolloutConfig, rng):
+    """One day's meal plan: (times[6], amounts[6]) of [block] vectors.
 
-    This runs branchlessly EVERY env step (day rollovers are per-patient and
-    desynchronize, so at batch>=1K some lane rolls over almost every step),
-    so the draw is transcendental-lean: amount normals come from 3 Box-Muller
-    pairs and the truncnorm times use the rational-only central inverse-CDF
-    branch (their CDF windows are static +/-2 sigma; slot 5 spans +/-3 sigma
-    and keeps the full 3-branch inverse)."""
+    Transcendental-lean: amount normals come from 3 Box-Muller pairs and
+    the truncnorm times use the rational-only central inverse-CDF branch
+    (their CDF windows are static +/-2 sigma; slot 5 spans +/-3 sigma and
+    keeps the full 3-branch inverse)."""
     times, amounts = [], []
     amt_z = []
     for _ in range(3):
-        z1, z2 = _normal_pair(rng, shape)
+        z1, z2 = _normal_pair(rng)
         amt_z += [z1, z2]
     for s in range(6):
-        u_occ = _uniform(rng, shape)
-        u_t = _uniform(rng, shape)
+        u_occ = _uniform(rng)
+        u_t = _uniform(rng)
         mu, sig = _TIME_MU[s], _TIME_SIGMA[s]
         a_cdf = 0.5 * (1.0 + math.erf((_TIME_LB[s] - mu) / sig / math.sqrt(2.0)))
         b_cdf = 0.5 * (1.0 + math.erf((_TIME_UB[s] - mu) / sig / math.sqrt(2.0)))
         inv = _ndtri if min(a_cdf, 1.0 - b_cdf) < 0.0227 else _ndtri_central
-        t = jnp.round(mu + sig * inv(a_cdf + u_t * (b_cdf - a_cdf)))
+        t = round_half_even(mu + sig * inv(a_cdf + u_t * (b_cdf - a_cdf)))
         amt = jnp.maximum(
-            jnp.round(_AMOUNT_MU[s] + _AMOUNT_SIGMA[s] * amt_z[s]), 0.0
+            round_half_even(_AMOUNT_MU[s] + _AMOUNT_SIGMA[s] * amt_z[s]), 0.0
         )
         occurs = u_occ < _MEAL_PROB[s]
         times.append(jnp.where(occurs, t, -1.0))
@@ -510,22 +570,27 @@ def _draw_meal_plan(cfg: PallasRolloutConfig, rng, shape):
 
 
 def _rk4_minute(p, xs, d_mg, insulin_rate, Dbar):
-    f = lambda ys: model_rhs_parts(ys, p, d_mg, insulin_rate, Dbar)
-    add = lambda ys, ks, c: tuple(y + c * k for y, k in zip(ys, ks))
-    k1 = f(xs)
-    k2 = f(add(xs, k1, 0.5))
-    k3 = f(add(xs, k2, 0.5))
-    k4 = f(add(xs, k3, 1.0))
-    return tuple(
-        x + (1.0 / 6.0) * (a + 2.0 * b + 2.0 * c_ + d)
-        for x, a, b, c_, d in zip(xs, k1, k2, k3, k4)
-    )
+    """One classic RK4 minute (envs' rk4_step at h=1) as a loop over the
+    four stages — one copy of the RHS in the kernel instead of four, which
+    keeps the GPU compile short.  Same arithmetic, in the same order, as
+    x + (1/6) * (k1 + 2 k2 + 2 k3 + k4)."""
+    zero = tuple(jnp.zeros_like(x) for x in xs)
 
+    def stage(s, carry):
+        acc, k = carry
+        # stage coefficients as arithmetic, not a select of two constants
+        # (exact: 0.5 + 0.5 = 1, 1 + 1 = 2); stage 0 adds 0.5 * 0
+        c = 0.5 + 0.5 * (s == 3).astype(jnp.float32)
+        ys = tuple(x + c * kk for x, kk in zip(xs, k))
+        k = model_rhs_parts(ys, p, d_mg, insulin_rate, Dbar)
+        w = 1.0 + ((s == 1) | (s == 2)).astype(jnp.float32)
+        acc = tuple(
+            jnp.where(s == 0, kk, a + w * kk) for a, kk in zip(acc, k)
+        )
+        return acc, k
 
-def _fbg_risk(bg):
-    logbg = jnp.log(jnp.maximum(bg, 1.0))
-    f = 1.509 * (jnp.power(logbg, 1.084) - 5.381)
-    return 10.0 * f * f * jnp.sign(f)  # signed risk: <0 hypo, >0 hyper
+    acc, _ = jax.lax.fori_loop(jnp.int32(0), jnp.int32(4), stage, (zero, zero))
+    return tuple(x + (1.0 / 6.0) * a for x, a in zip(xs, acc))
 
 
 def _risk_of(bg):
@@ -534,82 +599,34 @@ def _risk_of(bg):
     return 10.0 * f * f
 
 
-# State plane indices in the f32 scratch (all [R, 128]):
-#   0..12  ODE states
-#   13 planned_meal  14 last_CHO  15 is_eating  16 last_Qsto  17 foodtaken
-#   18 last_CGM      19 e         20..23 lattice
-#   24..29 meal_times 30..35 meal_amounts
-#   36 pid_integ     37 pid_prev  38 prev_CGM (for reward)
-#   39 prev_CHO (previous step's averaged CHO — the BB controller's meal
-#      announcement input, mirroring StepResult.CHO)
-#   40 ctrl_prev (the observation the controller acts on — equals prev_CGM
-#      except at episode start, where the env's reset draws TWO noise pops:
-#      the history sample feeds the reward window and the obs sample feeds
-#      the controller, env.py:126,142)
-#   41..53 cached reset ODE states  54 cached reset e  55..58 cached reset
-#      lattice (the auto-reset draw refreshed every regen_every steps)
-#   59 cached reset CGM0  60 cached reset risk0 (derived from the cache —
-#      avoids a clip+log+pow in every step's reset merge)
-#   61 ins_prev — the previous step's delivered insulin (the 'nn'
-#      controller's insulin observation feature, rl/policy.py
-#      featurize; zeroed on reset like the autoreset carry's StepResult)
-#   62 ctrl_pprev — the controller observation BEFORE ctrl_prev (the 'nn'
-#      trend feature: tanh((ctrl_prev - ctrl_pprev)/10), rl/policy.py
-#      featurize_parts; equals ctrl_prev at episode start -> zero trend)
-#   63 iob — insulin-on-board, the exp(-dt/100min)-decayed sum of delivered
-#      insulin (rl/policy.py iob_step); zeroed on reset
-#   NOTE plane 38 carries risk(prev CGM), not the CGM itself: risk_diff
-#   reuses the risk already computed when that CGM was produced.
-NS_F = 64
-#   int planes: 0 t_min (episode minutes)  1 start_min  2 day  3 seg
-#   4 lattice_next  5 sample_count  6 cached reset start_min
-NS_I = 7
-
-
-def _reset_values(
-    cfg: PallasRolloutConfig, rng, x0, shape, with_plan: bool = True
-):
-    """Fresh-episode state values (patient/sensor/scenario init).
-
-    ``with_plan=False`` skips drawing a meal plan (the in-step auto-reset
-    keeps the env's current plan: daily plans are i.i.d., so a new episode
-    consuming the existing plan is the same law at ~40% less per-step math).
-    """
+def _reset_values(cfg: PallasRolloutConfig, rng, x0, zero):
+    """A fresh episode's patient and sensor state: initial ODE state (with
+    the random initial BG), the noise lattice and the start minute.  The
+    meal plan is not part of it: daily plans are i.i.d., so an auto-reset
+    episode keeps the current plan, and a fresh run draws one at its first
+    step."""
     xs = list(x0)
     lattice_needed = not (cfg.deterministic or cfg.exogenous_noise)
     # 6 normals (3 init-BG + 3 noise-lattice) from exactly 3 Box-Muller pairs
     lat_z = None
     if not cfg.deterministic:
         if cfg.random_init_bg and lattice_needed:
-            za, zb = _normal_pair(rng, shape)
-            zc, zd = _normal_pair(rng, shape)
-            ze, zf = _normal_pair(rng, shape)
+            za, zb = _normal_pair(rng)
+            zc, zd = _normal_pair(rng)
+            ze, zf = _normal_pair(rng)
             for idx, z in ((3, za), (4, zb), (12, zc)):
-                mean = x0[idx]
-                xs[idx] = mean + jnp.sqrt(0.1 * mean) * z
+                xs[idx] = x0[idx] + jnp.sqrt(0.1 * x0[idx]) * z
             lat_z = (zd, ze, zf)
         elif cfg.random_init_bg:
-            za, zb = _normal_pair(rng, shape)
-            zc, _ = _normal_pair(rng, shape)
+            za, zb = _normal_pair(rng)
+            zc, _ = _normal_pair(rng)
             for idx, z in ((3, za), (4, zb), (12, zc)):
-                mean = x0[idx]
-                xs[idx] = mean + jnp.sqrt(0.1 * mean) * z
+                xs[idx] = x0[idx] + jnp.sqrt(0.1 * x0[idx]) * z
         elif lattice_needed:
-            za, zb = _normal_pair(rng, shape)
-            zc, _ = _normal_pair(rng, shape)
+            za, zb = _normal_pair(rng)
+            zc, _ = _normal_pair(rng)
             lat_z = (za, zb, zc)
-    zero = jnp.zeros(shape, jnp.float32)
-    f = {
-        "xs": tuple(xs),
-        "planned": zero,
-        "last_CHO": zero,
-        "eating": zero,
-        "last_Qsto": xs[0] + xs[1],
-        "foodtaken": zero,
-        "pid_integ": zero,
-        "pid_prev": zero,
-        "have_prev": zero,
-    }
+    f = {"xs": tuple(xs)}
     # sensor lattice init (ops/noise.py:52-73)
     if lat_z is None:
         f["e"] = zero
@@ -621,376 +638,249 @@ def _reset_values(
         f["e"] = e2
         j0 = _johnson(cfg, e0)
         f["lat"] = (j0, j0, _johnson(cfg, e1), _johnson(cfg, e2))
-    # scenario plan for day 0
+    zero_i = zero.astype(jnp.int32)
     if cfg.deterministic:
-        f["meal_t"] = [jnp.full(shape, -1.0)] * 6
-        f["meal_a"] = [zero] * 6
-        f["start_min"] = jnp.zeros(shape, jnp.int32)
+        f["start_min"] = zero_i
+    elif cfg.fixed_start_min >= 0:
+        f["start_min"] = zero_i + cfg.fixed_start_min
     else:
-        if with_plan:
-            if cfg.scenario_kind == "static":
-                # custom schedule lives in cfg.det_meal_*; no plan draw
-                f["meal_t"] = [jnp.full(shape, -1.0)] * 6
-                f["meal_a"] = [zero] * 6
-            else:
-                mt, ma = _draw_meal_plan(cfg, rng, shape)
-                f["meal_t"], f["meal_a"] = mt, ma
-        if cfg.fixed_start_min >= 0:
-            f["start_min"] = jnp.full(shape, cfg.fixed_start_min, jnp.int32)
-        else:
-            hour = jnp.floor(_uniform(rng, shape) * 24.0).astype(jnp.int32)
-            f["start_min"] = hour * 60
+        hour = jnp.floor(_uniform(rng) * 24.0).astype(jnp.int32)
+        f["start_min"] = hour * 60
     return f
 
 
-def _make_kernel(cfg: PallasRolloutConfig, n_blocks: int):
-    st = cfg.sample_time
-    TC = cfg.t_chunk
-    R = cfg.block_rows
-    shape = (R, LANES)
-    n_tchunks = cfg.n_steps // TC
+def _reset_cache(cfg, rng, x0, p, zero) -> dict:
+    """The auto-reset draw cache: a fresh episode's values, with the
+    derived reset CGM and its risk (avoids a clip+log+pow every step)."""
+    rc = _reset_values(cfg, rng, x0, zero)
+    S = {f"cx{i}": rc["xs"][i] for i in range(13)}
+    S["c_e"] = rc["e"]
+    for i in range(4):
+        S[f"clat{i}"] = rc["lat"][i]
+    cgm0 = jnp.clip(rc["xs"][12] / p.Vg + rc["lat"][1], cfg.cgm_min, cfg.cgm_max)
+    S["c_cgm0"] = cgm0
+    S["c_risk0"] = _risk_of(cgm0)
+    S["c_start"] = rc["start_min"]
+    return S
 
+
+def _fresh_state(cfg, rng, p, x0, zero, rnoise):
+    """(state dict, BG0, CGM0 history sample) of a fresh episode — the
+    env reset (reference env.py:119-134).  The episode starts from one
+    reset draw (the same code as the auto-reset cache), with no meal plan
+    and day -1: the regen at the run's first step draws the day's plan and
+    refreshes the cache."""
+    C = _reset_cache(cfg, rng, x0, p, zero)
+    zero_i = zero.astype(jnp.int32)
+    S = dict(C)
+    for i in range(13):
+        S[f"x{i}"] = C[f"cx{i}"]
+    bg0 = C["cx12"] / p.Vg
+    if cfg.exogenous_noise:
+        # the env's reset draws TWO noise pops (env.py:126,142): [0] ->
+        # history row 0 / reward window, [1] -> the obs the first
+        # controller call acts on
+        cgm_hist0 = jnp.clip(bg0 + rnoise[0], cfg.cgm_min, cfg.cgm_max)
+        cgm_obs0 = jnp.clip(bg0 + rnoise[1], cfg.cgm_min, cfg.cgm_max)
+        risk0 = _risk_of(cgm_hist0)
+    else:
+        # Catmull-Rom at tau=0 is exactly lat[1] (zero when deterministic)
+        cgm_hist0 = cgm_obs0 = C["c_cgm0"]
+        risk0 = C["c_risk0"]
+    S.update(
+        planned=zero, last_CHO=zero, eating=zero,
+        last_Qsto=C["cx0"] + C["cx1"], foodtaken=zero,
+        last_CGM=cgm_obs0, e=C["c_e"],
+        pid_integ=zero, pid_prev=zero,
+        # prev risk = risk(reset history sample); the first step's reward
+        # is risk(reset CGM) - risk(step CGM), matching env_reset's
+        # window = [CGM_hist0] + first-step window_len == 2 (env.py:126,100)
+        prev_risk=risk0,
+        prev_cho=zero,
+        ctrl_prev=cgm_obs0,  # the first controller observation
+        ins_prev=zero,
+        ctrl_pprev=cgm_obs0,  # == ctrl_prev -> zero trend
+        iob=zero,
+        t_min=zero_i, start_min=C["c_start"], day=zero_i - 1, seg=zero_i,
+        lat_next=zero_i + 3, n_samp=zero_i,
+    )
+    for i in range(4):
+        S[f"lat{i}"] = C[f"clat{i}"]
+    for s in range(6):
+        S[f"mt{s}"] = zero - 1.0
+        S[f"ma{s}"] = zero
+    return S, bg0, cgm_hist0
+
+
+def _make_kernel(cfg: PallasRolloutConfig, block: int):
+    st = cfg.sample_time
+    T = cfg.n_steps
     nn = cfg.controller == "nn"
-    emit = nn and cfg.nn_emit_learner_rows
+    H = cfg.nn_hidden
+    stochastic = not cfg.deterministic
+    native_noise = stochastic and not cfg.exogenous_noise
+    sample_actions = nn and stochastic and cfg.nn_sample_actions
+
+    def policy_mean(wref, feats):
+        """Relu MLP trunk on [block] features -> mean action [block], as
+        f32 FMAs: a loop over the H first-layer units, each unit's [block]
+        activation accumulated into the [block, H] second layer.  (A Triton
+        dot at f32 precision measured 64x slower on the H100: it takes no
+        tensor cores and converts layouts through shared memory each
+        step.)  Full f32, like the XLA policy forward
+        (rl/policy.policy_apply, precision HIGHEST)."""
+        def unit(k, acc):
+            h1 = wref[_B1_ROW, k]
+            for j, fj in enumerate(feats):
+                h1 = h1 + fj * wref[j, k]
+            h1 = jnp.maximum(h1, 0.0)
+            return acc + h1[:, None] * wref[_W2_ROW + k][None, :]
+
+        acc = jax.lax.fori_loop(
+            jnp.int32(0), jnp.int32(H), unit,
+            jnp.zeros((block, H), jnp.float32),
+        )
+        h = jnp.maximum(acc + wref[_B2_ROW][None, :], 0.0)
+        return jnp.sum(h * wref[_WMU_ROW][None, :], axis=1)
 
     def kernel(*refs):
-        # inputs: seed, params, [wnn], [rnoise, noise], [state_f, state_i]
-        # outputs: 6 traj planes, [raw/octrl/oins/ocho], rst,
-        #          [state_f_out, state_i_out]  (persistent) | scratch fs/is_
-        k = 2
-        seed_ref, pref = refs[0], refs[1]
-        wnn_ref = nns_ref = rnoise_ref = noise_ref = None
-        sf_in = si_in = None
-        if nn:
-            wnn_ref, nns_ref = refs[k], refs[k + 1]
-            k += 2
+        # inputs: scal (seed, init, step0, lane0), params, [weights],
+        # [rnoise, noise], [state_f, state_i]; outputs: 6 traj planes,
+        # [6 'nn' planes], rst, [state_f_out, state_i_out]
+        it = iter(refs)
+        scal_ref, pref = next(it), next(it)
+        wref = next(it) if nn else None
+        rnoise_ref = noise_ref = None
         if cfg.exogenous_noise:
-            rnoise_ref, noise_ref = refs[k], refs[k + 1]
-            k += 2
+            rnoise_ref, noise_ref = next(it), next(it)
+        sf_in = si_in = None
         if cfg.persistent_state:
-            sf_in, si_in = refs[k], refs[k + 1]
-            k += 2
-        cgm_out, bg_out, rew_out, done_out, cho_out, ins_out = refs[k:k + 6]
-        k += 6
-        raw_out = octrl_out = oins_out = ocho_out = None
-        oprev_out = oiob_out = lrn_out = None
-        if emit:
-            lrn_out = refs[k]  # [10, TC, R, 128] learner-row block
-            k += 1
-        elif nn:
-            (raw_out, octrl_out, oins_out, ocho_out, oprev_out,
-             oiob_out) = refs[k:k + 6]
-            k += 6
-        rst_out = refs[k]
-        # persistent: the state OUTPUT refs are the working state; scratch
-        # otherwise — either way the tail two refs
-        fs, is_ = refs[k + 1], refs[k + 2]
-        b = pl.program_id(0)
-        t = pl.program_id(1)
-        if cfg.deterministic:
-            rng = None  # the exact-parity config never draws
-        else:
-            sv = seed_ref[0] + b * jnp.int32(1000003) + t
-            if cfg.prng == "hw":
-                # hw PRNG only lowers on real TPUs; 'sw' covers interpret mode
-                pltpu.prng_seed(sv)
-                rng = _HwRng()
-            else:
-                rng = _SwRng(sv)
+            sf_in, si_in = next(it), next(it)
+        traj_refs = [next(it) for _ in range(6)]
+        nn_refs = [next(it) for _ in range(6)] if nn else None
+        rst_ref = next(it)
+        if cfg.persistent_state:
+            sf_out, si_out = next(it), next(it)
 
-        p, x0, (basal_rate_u, quest_CR, quest_CF) = _unpack_params(
-            pref, slice(None)
+        seed, step0 = scal_ref[0], scal_ref[2]
+        # non-persistent configs always start fresh
+        init = scal_ref[1] if cfg.persistent_state else 1
+        lanes = (
+            scal_ref[3] + pl.program_id(0) * block
+            + jax.lax.broadcasted_iota(jnp.int32, (block,), 0)
         )
+        key = lane_keys(seed, lanes) if stochastic else None
+        zero = jnp.zeros((block,), jnp.float32)
 
+        p, x0, _ = _unpack_params(pref)
+        rnoise = (
+            (rnoise_ref[0], rnoise_ref[1]) if cfg.exogenous_noise else None
+        )
+        rng0 = _Rng(key, step0 - 1) if stochastic else None
+        S, bg0, cgm_hist0 = _fresh_state(cfg, rng0, p, x0, zero, rnoise)
         if cfg.persistent_state:
-            # continue prior episodes: pull the incoming state into the
-            # working (output) refs, unless this is the init call
-            @pl.when(jnp.logical_and(t == 0, seed_ref[1] == 0))
-            def _carry_in():
-                for i in range(NS_F):
-                    fs[i] = sf_in[i]
-                for i in range(NS_I):
-                    is_[i] = si_in[i]
+            # continue the incoming episodes unless this is an init call
+            fresh = init == 1
+            for i, n in enumerate(_F_NAMES):
+                S[n] = jnp.where(fresh, S[n], sf_in[i])
+            for i, n in enumerate(_I_NAMES):
+                S[n] = jnp.where(fresh, S[n], si_in[i])
+        # reset observation (the frame's row 0, reference env.py:119-134);
+        # meaningful on init calls only
+        rst_ref[0] = bg0
+        rst_ref[1] = cgm_hist0
 
-            init_cond = jnp.logical_and(t == 0, seed_ref[1] == 1)
-        else:
-            init_cond = t == 0
+        def pair(site, g, t, spare):
+            """One Box-Muller pair serves two consecutive global steps: the
+            even step draws it and carries the second half; a call that
+            starts on an odd step redraws its pair (counter-based, so the
+            stream is identical to an unchunked run)."""
+            def draw():
+                even = g - g % 2
+                z = _normal_pair(_Rng(key, even, site, site + 2))
+                first = g % 2 == 0
+                return jnp.where(first, z[0], z[1]), z[1]
 
-        @pl.when(init_cond)
-        def _init():
-            fvals = _reset_values(cfg, rng, x0, shape)
-            for i in range(13):
-                fs[i] = fvals["xs"][i]
-            fs[13] = fvals["planned"]
-            fs[14] = fvals["last_CHO"]
-            fs[15] = fvals["eating"]
-            fs[16] = fvals["last_Qsto"]
-            fs[17] = fvals["foodtaken"]
-            bg0 = fvals["xs"][12] / p.Vg
-            if cfg.exogenous_noise:
-                # the env's reset draws TWO noise pops (env.py:126,142):
-                # [0] -> history row 0 / reward window, [1] -> the obs the
-                # first controller call acts on
-                cgm_hist0 = jnp.clip(
-                    bg0 + rnoise_ref[0], cfg.cgm_min, cfg.cgm_max
-                )
-                cgm_obs0 = jnp.clip(
-                    bg0 + rnoise_ref[1], cfg.cgm_min, cfg.cgm_max
-                )
-            elif cfg.deterministic:
-                cgm_hist0 = cgm_obs0 = jnp.clip(bg0, cfg.cgm_min, cfg.cgm_max)
-            else:
-                # Catmull-Rom at tau=0 is exactly lat[1]
-                cgm_hist0 = cgm_obs0 = jnp.clip(
-                    bg0 + fvals["lat"][1], cfg.cgm_min, cfg.cgm_max
-                )
-            fs[18] = cgm_obs0  # ZOH value between samples
-            # reset observation (the frame's row 0, reference env.py:119-134)
-            rst_out[0] = bg0
-            rst_out[1] = cgm_hist0
-            fs[19] = fvals["e"]
-            for i in range(4):
-                fs[20 + i] = fvals["lat"][i]
-            for i in range(6):
-                fs[24 + i] = fvals["meal_t"][i]
-                fs[30 + i] = fvals["meal_a"][i]
-            fs[36] = fvals["pid_integ"]
-            fs[37] = fvals["pid_prev"]
-            # prev risk = risk(reset history sample); the first step's reward
-            # is risk(reset CGM) - risk(step CGM), matching env_reset's
-            # window = [CGM_hist0] + first-step window_len == 2 (env.py:126,100)
-            fs[38] = _risk_of(cgm_hist0)
-            fs[39] = jnp.zeros(shape, jnp.float32)  # prev_CHO
-            fs[40] = cgm_obs0  # the first controller observation
-            fs[61] = jnp.zeros(shape, jnp.float32)  # ins_prev
-            fs[62] = cgm_obs0  # ctrl_pprev == ctrl_prev -> zero trend
-            fs[63] = jnp.zeros(shape, jnp.float32)  # iob
-            is_[0] = jnp.zeros(shape, jnp.int32)  # t_min
-            is_[1] = fvals["start_min"]
-            is_[2] = jnp.zeros(shape, jnp.int32)  # day
-            is_[3] = jnp.zeros(shape, jnp.int32)  # seg
-            is_[4] = jnp.full(shape, 3, jnp.int32)  # lattice_next
-            is_[5] = jnp.zeros(shape, jnp.int32)  # sample_count (0 used at reset)
-            # seed the auto-reset draw cache (refreshed every regen_every
-            # steps in the step loop)
-            rc = _reset_values(cfg, rng, x0, shape, with_plan=False)
-            for i in range(13):
-                fs[41 + i] = rc["xs"][i]
-            fs[54] = rc["e"]
-            for i in range(4):
-                fs[55 + i] = rc["lat"][i]
-            rc_cgm0 = jnp.clip(
-                rc["xs"][12] / p.Vg + rc["lat"][1], cfg.cgm_min, cfg.cgm_max
+            return jax.lax.cond(
+                (g % 2 == 0) | (t == 0), draw, lambda: (spare, spare)
             )
-            fs[59] = rc_cgm0
-            fs[60] = _risk_of(rc_cgm0)
-            is_[6] = rc["start_min"]
 
-        # ---- load state ----
-        xs = tuple(fs[i] for i in range(13))
-        planned, last_CHO, eating = fs[13], fs[14], fs[15]
-        last_Qsto, foodtaken = fs[16], fs[17]
-        last_CGM, e_ar = fs[18], fs[19]
-        lat = [fs[20 + i] for i in range(4)]
-        meal_t = [fs[24 + i] for i in range(6)]
-        meal_a = [fs[30 + i] for i in range(6)]
-        pid_integ, pid_prev = fs[36], fs[37]
-        prev_risk = fs[38]
-        prev_cho = fs[39]
-        ctrl_prev = fs[40]
-        ins_prev = fs[61]
-        ctrl_pprev = fs[62]
-        iob = fs[63]
-        if nn:
-            # per-lane featurization constants (rl/policy.py
-            # featurize_parts): basal is static per patient, so the
-            # divisions hoist out of the step loop
-            inv3b = 1.0 / (3.0 * (basal_rate_u + 1e-8))
-            inv120b = 1.0 / (120.0 * (basal_rate_u + 1e-8))
-            f7 = jnp.tanh(20.0 * basal_rate_u)
-            iob_decay = math.exp(-st / 100.0)  # iob_step, tau=100 min
-            H = cfg.nn_hidden
-            w1t = wnn_ref[:, 0:7]  # [H, 7]
-            b1 = wnn_ref[:, 7:8]  # [H, 1]
-            wmu = wnn_ref[:, 8:9]  # [H, 1]
-            # b_mu / log_std / b_v come through SMEM: scalar->vector
-            # broadcast is native there, while a [1,1] VMEM slice broadcast
-            # to [R,128] is "broadcast in both sublanes and lanes"
-            # (unimplemented in Mosaic)
-            bmu_s = nns_ref[0]
-            log_std_s = nns_ref[1]
-            sigma_s = jnp.exp(log_std_s)
-            w2t = wnn_ref[:, 12:12 + H]  # [H, H]
-            b2 = wnn_ref[:, 12 + H:13 + H]  # [H, 1]
-            if emit:
-                wv = wnn_ref[:, 10:11]  # [H, 1] value head
-                bv_s = nns_ref[2]
-                inv_sigma = jnp.exp(-log_std_s)
+        def step(t, carry):
+            S, z_spare, a_spare = carry
+            S = dict(S)
+            g = step0 + t  # global step index (continues across calls)
+            p, x0, (basal, CR, CF) = _unpack_params(pref)
 
-            def nn_forward(feats):
-                """Policy trunk on the MXU over all R sublane rows ->
-                (mu [R,128], value [R,128] or None).  The value head is
-                one extra [H,1] read-out of the shared trunk (emit mode
-                only)."""
-                if cfg.nn_batched_mlp:
-                    # one batched trunk over all R rows: contract the
-                    # feature axis, lanes = patients, rows ride a batch dim
-                    obs_all = jnp.stack(feats, axis=0)  # [7, R, 128]
-                    dn = (((1,), (0,)), ((), ()))
-                    h = jnp.maximum(
-                        jax.lax.dot_general(
-                            w1t, obs_all, dimension_numbers=dn,
-                            preferred_element_type=jnp.float32,
-                        ) + b1[:, :, None],
-                        0.0,
-                    )  # [H, R, 128]
-                    h = jnp.maximum(
-                        jax.lax.dot_general(
-                            w2t, h, dimension_numbers=dn,
-                            preferred_element_type=jnp.float32,
-                        ) + b2[:, :, None],
-                        0.0,
-                    )
-                    mu = jnp.sum(h * wmu[:, :, None], axis=0) + bmu_s
-                    v = (
-                        jnp.sum(h * wv[:, :, None], axis=0) + bv_s
-                        if emit else None
-                    )
-                else:
-                    # [H,7]@[7,128] + [H,H]@[H,128] MXU pair per sublane
-                    # row (lanes = patients, sublanes = hidden units)
-                    mu_rows, v_rows = [], []
-                    for r in range(R):
-                        obs_r = jnp.stack(
-                            [f[r] for f in feats], axis=0
-                        )  # [7, 128]
-                        h = jnp.maximum(
-                            jnp.dot(
-                                w1t, obs_r, preferred_element_type=jnp.float32
-                            ) + b1,
-                            0.0,
-                        )
-                        h = jnp.maximum(
-                            jnp.dot(
-                                w2t, h, preferred_element_type=jnp.float32
-                            ) + b2,
-                            0.0,
-                        )
-                        mu_rows.append(jnp.sum(h * wmu, axis=0, keepdims=True))
-                        if emit:
-                            v_rows.append(
-                                jnp.sum(h * wv, axis=0, keepdims=True)
-                            )
-                    mu = jnp.concatenate(mu_rows, axis=0) + bmu_s  # [R, 128]
-                    v = (
-                        jnp.concatenate(v_rows, axis=0) + bv_s
-                        if emit else None
-                    )
-                return mu, v
-        cache_xs = tuple(fs[41 + i] for i in range(13))
-        cache_e = fs[54]
-        cache_lat = [fs[55 + i] for i in range(4)]
-        cache_cgm0 = fs[59]
-        cache_risk0 = fs[60]
-        cache_start = is_[6]
-        t_min = is_[0]
-        start_min = is_[1]
-        day = is_[2]
-        seg = is_[3]
-        lat_next = is_[4]
-        n_samp = is_[5]
-
-        for i_step in range(TC):
-            # ---- controller acts on the previous step's CGM observation,
+            # ---- controller acts on the previous step's observation,
             # exactly like the closed loop (sim_engine.py:33-37) ----
+            ctrl_prev, prev_cho = S["ctrl_prev"], S["prev_cho"]
             if nn:
-                # featurize (rl/policy.py featurize_parts): [cgm/400,
-                # (cgm-140)/100, tanh(ins/(3b)), tanh(cho/10),
-                # tanh(trend/10), tanh(iob/(120b)), tanh(20b)]
-                f1 = ctrl_prev * (1.0 / 400.0)
-                f2 = (ctrl_prev - 140.0) * 0.01
-                f3 = jnp.tanh(ins_prev * inv3b)
-                f4 = jnp.tanh(prev_cho * 0.1)
-                f5 = jnp.tanh((ctrl_prev - ctrl_pprev) * 0.1)
-                f6 = jnp.tanh(iob * inv120b)
-                feats = (f1, f2, f3, f4, f5, f6, f7)
-                if emit:
-                    # learner rows 0-6: the featurized observation itself
-                    for j in range(7):
-                        lrn_out[j, i_step] = feats[j]
+                # featurize (rl/policy.py featurize_parts)
+                b8 = basal + 1e-8
+                feats = (
+                    ctrl_prev * (1.0 / 400.0),
+                    (ctrl_prev - 140.0) * 0.01,
+                    jnp.tanh(S["ins_prev"] / (3.0 * b8)),
+                    jnp.tanh(prev_cho * 0.1),
+                    jnp.tanh((ctrl_prev - S["ctrl_pprev"]) * 0.1),
+                    jnp.tanh(S["iob"] / (120.0 * b8)),
+                    jnp.tanh(20.0 * basal),
+                )
+                # the controller's observation inputs: the learner
+                # reconstructs featurize() from these (rl/fused.py)
+                for ref, v in zip(
+                    nn_refs[1:],
+                    (ctrl_prev, S["ins_prev"], prev_cho, S["ctrl_pprev"],
+                     S["iob"]),
+                ):
+                    ref[t] = v
+                scal = wref[_SCAL_ROW]
+                col = jax.lax.broadcasted_iota(jnp.int32, (H,), 0)
+                mu = policy_mean(wref, feats) + jnp.sum(
+                    jnp.where(col == 0, scal, 0.0)
+                )
+                if sample_actions:
+                    za, a_spare = pair(_ACTION_PAIR, g, t, a_spare)
+                    sigma = jnp.exp(jnp.sum(jnp.where(col == 1, scal, 0.0)))
+                    raw = mu + sigma * za
                 else:
-                    # record the controller's observation inputs (the
-                    # learner reconstructs featurize() from these to
-                    # recompute logp/value outside the kernel)
-                    octrl_out[i_step] = ctrl_prev
-                    oins_out[i_step] = ins_prev
-                    ocho_out[i_step] = prev_cho
-                    oprev_out[i_step] = ctrl_pprev
-                    oiob_out[i_step] = iob
-                mu, v = nn_forward(feats)
-                if emit:
-                    # row 7 = value (nulled in the learner's forward by the
-                    # zero-padded w1 column; its grad column is discarded)
-                    lrn_out[7, i_step] = v
-                if cfg.deterministic or not cfg.nn_sample_actions:
                     raw = mu  # policy-mean actions (deployment/eval mode)
-                else:
-                    if i_step % 2 == 0:
-                        za_pair = _normal_pair(rng, shape)
-                    raw = mu + sigma_s * za_pair[i_step % 2]
-                if emit:
-                    lrn_out[8, i_step] = raw
-                    # row 9 = behavior log-prob (rl/policy.gaussian_logprob)
-                    z_lp = (raw - mu) * inv_sigma
-                    lrn_out[9, i_step] = (
-                        -0.5 * z_lp * z_lp - log_std_s - 0.5 * _LOG_2PI
-                    )
-                else:
-                    raw_out[i_step] = raw
+                nn_refs[0][t] = raw
                 if cfg.nn_decoder == "residual_bb":
                     # BB therapy command (reference basal_bolus_ctrller.py:
-                    # 34-80 — the same inputs as the kernel's 'bb' branch)
-                    # modulated multiplicatively by the policy within
-                    # [exp(-scale), exp(+scale)] (rl/policy.py PolicyParams
-                    # decoder='residual_bb'); the pump quantizes the FINAL
-                    # command, matching the eval-path controller + env pump
-                    glucose = ctrl_prev
-                    meal_ann = prev_cho
-                    bolus_u = (meal_ann * st) / quest_CR + (
-                        glucose > 150.0
-                    ).astype(jnp.float32) * (
-                        glucose - cfg.bb_target
-                    ) / quest_CF
-                    bolus_cmd = jnp.where(meal_ann > 0, bolus_u / st, 0.0)
-                    bb_cmd = basal_rate_u + bolus_cmd
+                    # 34-80) modulated by the policy within
+                    # [exp(-scale), exp(+scale)]; the pump quantizes the
+                    # FINAL command (eval-path controller + env pump)
+                    bolus_u = (prev_cho * st) / CR + (
+                        ctrl_prev > 150.0
+                    ).astype(jnp.float32) * (ctrl_prev - cfg.bb_target) / CF
+                    bolus_cmd = jnp.where(prev_cho > 0, bolus_u / st, 0.0)
                     mod = jnp.exp(cfg.nn_action_scale * jnp.tanh(raw))
                     insulin = _quantize(
-                        bb_cmd * mod, cfg.inc_basal, cfg.min_basal,
-                        cfg.max_basal,
+                        (basal + bolus_cmd) * mod, cfg.inc_basal,
+                        cfg.min_basal, cfg.max_basal,
                     )
                 else:
                     # squashed Gaussian -> basal (rl/policy.py
                     # sample_action), then pump quantization
-                    # (actuator/pump.py:32-39)
                     basal_cmd = cfg.nn_action_scale / (1.0 + jnp.exp(-raw))
                     if cfg.nn_scale_by_basal:
-                        basal_cmd = basal_cmd * basal_rate_u
+                        basal_cmd = basal_cmd * basal
                     insulin = _quantize(
                         basal_cmd, cfg.inc_basal, cfg.min_basal,
                         cfg.max_basal,
                     )
-                # insulin-on-board update (rl/policy.py iob_step): decay,
-                # then add this step's dose
-                iob = iob * iob_decay + insulin * float(st)
+                # insulin-on-board update (rl/policy.py iob_step)
+                S["iob"] = S["iob"] * math.exp(-st / 100.0) + insulin * float(st)
             elif cfg.controller == "pid":
                 obs = ctrl_prev
                 control = (
                     cfg.pid_p * (obs - cfg.pid_target)
-                    + cfg.pid_i * pid_integ
-                    + cfg.pid_d * (obs - pid_prev) / st
+                    + cfg.pid_i * S["pid_integ"]
+                    + cfg.pid_d * (obs - S["pid_prev"]) / st
                 )
-                pid_integ = pid_integ + (obs - cfg.pid_target) * st
-                pid_prev = obs
+                S["pid_integ"] = S["pid_integ"] + (obs - cfg.pid_target) * st
+                S["pid_prev"] = obs
                 insulin = _quantize(
                     control, cfg.inc_basal, cfg.min_basal, cfg.max_basal
                 )
@@ -998,94 +888,86 @@ def _make_kernel(cfg: PallasRolloutConfig, n_blocks: int):
                 # basal-bolus therapy on the previous step's CGM + announced
                 # meal (controllers/functional.py bb_controller, reference
                 # basal_bolus_ctrller.py:34-80): bolus only when meal > 0
-                glucose = ctrl_prev
-                meal_ann = prev_cho  # g/min averaged over the prev step
-                bolus_u = (meal_ann * st) / quest_CR + (
-                    glucose > 150.0
-                ).astype(jnp.float32) * (glucose - cfg.bb_target) / quest_CF
-                bolus_cmd = jnp.where(meal_ann > 0, bolus_u / st, 0.0)
+                bolus_u = (prev_cho * st) / CR + (
+                    ctrl_prev > 150.0
+                ).astype(jnp.float32) * (ctrl_prev - cfg.bb_target) / CF
+                bolus_cmd = jnp.where(prev_cho > 0, bolus_u / st, 0.0)
                 insulin = _quantize(
-                    basal_rate_u, cfg.inc_basal, cfg.min_basal, cfg.max_basal
+                    basal, cfg.inc_basal, cfg.min_basal, cfg.max_basal
                 ) + _quantize(
                     bolus_cmd, cfg.inc_bolus, cfg.min_bolus, cfg.max_bolus
                 )
             else:
                 insulin = _quantize(
-                    jnp.full(shape, cfg.const_basal, jnp.float32),
-                    cfg.inc_basal,
-                    cfg.min_basal,
+                    zero + cfg.const_basal, cfg.inc_basal, cfg.min_basal,
                     cfg.max_basal,
                 )
 
-            # ---- scenario: candidate next-day plan + per-minute lookup.
-            # The redraw runs only at the regen_every cadence — a deferred
-            # midnight regen is observationally exact because no meal slot
-            # can fire before 5 am (see PallasRolloutConfig.regen_every) ----
-            if not cfg.deterministic and i_step % cfg.regen_every == 0:
-                if cfg.scenario_kind == "random":
-                    mins_last = start_min + t_min + (st - 1)
-                    day_end = mins_last // MINUTES_PER_DAY
-                    regen = (day_end > day).astype(jnp.float32)
-                    new_t, new_a = _draw_meal_plan(cfg, rng, shape)
-                    for s in range(6):
-                        meal_t[s] = (
-                            regen * new_t[s] + (1.0 - regen) * meal_t[s]
-                        )
-                        meal_a[s] = (
-                            regen * new_a[s] + (1.0 - regen) * meal_a[s]
-                        )
-                    day = jnp.maximum(day, day_end)
-                # refresh the auto-reset draw cache at the same cadence
-                if cfg.autoreset:
-                    rc = _reset_values(cfg, rng, x0, shape, with_plan=False)
-                    cache_xs = rc["xs"]
-                    cache_e = rc["e"]
-                    cache_lat = rc["lat"]
-                    cache_start = rc["start_min"]
-                    cache_cgm0 = jnp.clip(
-                        cache_xs[12] / p.Vg + cache_lat[1],
-                        cfg.cgm_min,
-                        cfg.cgm_max,
-                    )
-                    cache_risk0 = _risk_of(cache_cgm0)
-
-            # one Box-Muller pair serves TWO steps' AR(1) advances (a
-            # fresh lattice point is needed at most once per step, and both
-            # halves of the pair are consumed instead of one)
-            if (
-                not cfg.deterministic
-                and not cfg.exogenous_noise
-                and i_step % 2 == 0
+            # ---- scenario redraw + reset-cache refresh at the regen_every
+            # cadence.  A deferred midnight regen is observationally exact
+            # because no meal slot fires before 5 am (regen_every docs) ----
+            if stochastic and (
+                cfg.scenario_kind == "random" or cfg.autoreset
             ):
-                z_pair = _normal_pair(rng, shape)
+                keys = []
+                if cfg.scenario_kind == "random":
+                    keys += [f"mt{s}" for s in range(6)]
+                    keys += [f"ma{s}" for s in range(6)] + ["day"]
+                if cfg.autoreset:
+                    keys += _CACHE_NAMES
 
-            CHO_acc = jnp.zeros(shape, jnp.float32)
-            BG_acc = jnp.zeros(shape, jnp.float32)
-            CGM_acc = jnp.zeros(shape, jnp.float32)
+                def regen(sub):
+                    sub = dict(sub)
+                    rng = _Rng(key, g)
+                    if cfg.scenario_kind == "random":
+                        mins_last = S["start_min"] + S["t_min"] + (st - 1)
+                        day_end = mins_last // MINUTES_PER_DAY
+                        new = day_end > sub["day"]
+                        new_t, new_a = _draw_meal_plan(cfg, rng)
+                        for s in range(6):
+                            sub[f"mt{s}"] = jnp.where(new, new_t[s], sub[f"mt{s}"])
+                            sub[f"ma{s}"] = jnp.where(new, new_a[s], sub[f"ma{s}"])
+                        sub["day"] = jnp.maximum(sub["day"], day_end)
+                    if cfg.autoreset:
+                        sub.update(_reset_cache(cfg, rng, x0, p, zero))
+                    return sub
 
-            for m in range(st):
-                # meal for this minute (first-match lookup, scenario.py:37-42)
+                # a fresh run regens at its first step whatever the cadence
+                # (the day's plan and the reset cache, see _fresh_state)
+                first = (t == 0) & (init == 1)
+                S.update(jax.lax.cond(
+                    (g % cfg.regen_every == 0) | first, regen, dict,
+                    {k: S[k] for k in keys},
+                ))
+
+            if native_noise:
+                z, z_spare = pair(_NOISE_PAIR, g, t, z_spare)
+
+            def minute(m, c):
+                """One patient-minute: meal lookup, eating state machine,
+                RK4 (the inputs are held over the minute)."""
+                (xs, planned, last_CHO, eating, last_Qsto, foodtaken, t_min,
+                 CHO_acc, BG_acc, _) = c
+                # meal for this minute (first-match lookup,
+                # scenario.py:37-42)
+                meal = zero
                 if cfg.deterministic or cfg.scenario_kind == "static":
-                    meal = jnp.zeros(shape, jnp.float32)
-                    # static schedule: absolute episode minute -> grams (the
-                    # exogenous meal_seq / CustomScenario analog)
-                    for tt, aa in zip(
-                        cfg.det_meal_times, cfg.det_meal_amounts
-                    ):
-                        hit = (t_min == jnp.int32(tt)).astype(jnp.float32)
-                        meal = meal + hit * jnp.float32(aa)
+                    # static schedule: absolute episode minute -> grams
+                    # (the exogenous meal_seq / CustomScenario analog)
+                    for tt, aa in zip(cfg.det_meal_times, cfg.det_meal_amounts):
+                        meal = jnp.where(t_min == tt, meal + aa, meal)
                 else:
-                    # t_min is incremented per minute below, so here it IS
-                    # the current absolute episode minute (do not add m)
-                    mod = (start_min + t_min) % MINUTES_PER_DAY
-                    modf = mod.astype(jnp.float32)
-                    meal = jnp.zeros(shape, jnp.float32)
-                    taken = jnp.zeros(shape, jnp.float32)
+                    # t_min advances per minute, so it IS the current
+                    # absolute episode minute
+                    modf = (
+                        (S["start_min"] + t_min) % MINUTES_PER_DAY
+                    ).astype(jnp.float32)
+                    taken = zero
                     for s in range(6):
-                        hit = (meal_t[s] == modf).astype(jnp.float32) * (
+                        hit = (S[f"mt{s}"] == modf).astype(jnp.float32) * (
                             1.0 - taken
                         )
-                        meal = meal + hit * meal_a[s]
+                        meal = meal + hit * S[f"ma{s}"]
                         taken = jnp.maximum(taken, hit)
 
                 # meal announcement / eating state machine (patient.py)
@@ -1095,71 +977,66 @@ def _make_kernel(cfg: PallasRolloutConfig, n_blocks: int):
                 )
                 planned = jnp.maximum(planned - to_eat, 0.0)
                 starts = (to_eat > 0) & (last_CHO <= 0)
-                qsto_now = xs[0] + xs[1]
-                last_Qsto = jnp.where(starts, qsto_now, last_Qsto)
+                last_Qsto = jnp.where(starts, xs[0] + xs[1], last_Qsto)
                 foodtaken = jnp.where(starts, 0.0, foodtaken)
                 eating_b = starts | (eating > 0)
                 foodtaken = jnp.where(eating_b, foodtaken + to_eat, foodtaken)
                 ends = (to_eat <= 0) & (last_CHO > 0)
-                eating_b = eating_b & ~ends
-                eating = eating_b.astype(jnp.float32)
+                eating = (eating_b & ~ends).astype(jnp.float32)
                 last_CHO = to_eat
 
-                d_mg = to_eat * 1000.0
-                ins_rate = insulin * 6000.0 / p.BW
-                Dbar = last_Qsto + foodtaken * 1000.0
-                xs = _rk4_minute(p, xs, d_mg, ins_rate, Dbar)
-                t_min = t_min + 1
-
+                xs = _rk4_minute(
+                    p, xs, to_eat * 1000.0, insulin * 6000.0 / p.BW,
+                    last_Qsto + foodtaken * 1000.0,
+                )
                 bg_m = xs[12] / p.Vg
-                if m == st - 1:
-                    # fresh CGM sample (devices/cgm.py + ops/noise.py)
-                    if cfg.exogenous_noise:
-                        # noise plane row i_step = the env path's
-                        # noise_seq[step + 2] (2 reset pops first)
-                        cgm_m = jnp.clip(
-                            bg_m + noise_ref[i_step],
-                            cfg.cgm_min,
-                            cfg.cgm_max,
-                        )
-                    elif cfg.deterministic:
-                        cgm_m = jnp.clip(bg_m, cfg.cgm_min, cfg.cgm_max)
-                    else:
-                        tau = (n_samp + 1) * st
-                        k = tau // MDL_SAMPLE_TIME
-                        u = (tau - k * MDL_SAMPLE_TIME).astype(
-                            jnp.float32
-                        ) / MDL_SAMPLE_TIME
-                        need = ((k + 2) >= lat_next).astype(jnp.float32)
-                        z = z_pair[i_step % 2]
-                        e_new = cfg.pacf * (e_ar + z)
-                        eps_new = _johnson(cfg, e_new)
-                        e_ar = need * e_new + (1.0 - need) * e_ar
-                        new_lat = [
-                            need * l_next + (1.0 - need) * l_cur
-                            for l_cur, l_next in zip(
-                                lat, [lat[1], lat[2], lat[3], eps_new]
-                            )
-                        ]
-                        lat = new_lat
-                        lat_next = lat_next + need.astype(jnp.int32)
-                        seg = k
-                        noise = _catmull(lat[0], lat[1], lat[2], lat[3], u)
-                        cgm_m = jnp.clip(
-                            bg_m + noise, cfg.cgm_min, cfg.cgm_max
-                        )
-                        n_samp = n_samp + 1
-                    last_CGM = cgm_m
-                else:
-                    cgm_m = last_CGM
-
                 # the reference records the ANNOUNCED scenario meal in the
                 # CHO history (env.py:54,60 records action.meal, not the
                 # EAT_RATE-limited eaten amount) — and the BB controller's
                 # meal input is that announced value
-                CHO_acc = CHO_acc + meal / float(st)
-                BG_acc = BG_acc + bg_m / float(st)
-                CGM_acc = CGM_acc + cgm_m / float(st)
+                return (xs, planned, last_CHO, eating, last_Qsto, foodtaken,
+                        t_min + 1, CHO_acc + meal / float(st),
+                        BG_acc + bg_m / float(st), bg_m)
+
+            (xs, planned, last_CHO, eating, last_Qsto, foodtaken, t_min,
+             CHO_acc, BG_acc, bg_m) = jax.lax.fori_loop(
+                jnp.int32(0), jnp.int32(st), minute,
+                (tuple(S[f"x{i}"] for i in range(13)), S["planned"],
+                 S["last_CHO"], S["eating"], S["last_Qsto"], S["foodtaken"],
+                 S["t_min"], zero, zero, zero),
+            )
+
+            # fresh CGM sample at the step's last minute (devices/cgm.py +
+            # ops/noise.py); the earlier minutes hold the previous sample
+            if cfg.exogenous_noise:
+                # noise row t = the env path's noise_seq[step + 2] (2 reset
+                # pops first)
+                noise = noise_ref[t]
+            elif cfg.deterministic:
+                noise = zero
+            else:
+                tau = (S["n_samp"] + 1) * st
+                k = tau // MDL_SAMPLE_TIME
+                u = (tau - k * MDL_SAMPLE_TIME).astype(
+                    jnp.float32
+                ) / MDL_SAMPLE_TIME
+                need = (k + 2) >= S["lat_next"]
+                e_new = cfg.pacf * (S["e"] + z)
+                eps_new = _johnson(cfg, e_new)
+                S["e"] = jnp.where(need, e_new, S["e"])
+                lat = [S[f"lat{i}"] for i in range(4)]
+                nxt = lat[1:] + [eps_new]
+                for i in range(4):
+                    S[f"lat{i}"] = jnp.where(need, nxt[i], lat[i])
+                S["lat_next"] = S["lat_next"] + need.astype(jnp.int32)
+                S["seg"] = k
+                noise = _catmull(*(S[f"lat{i}"] for i in range(4)), u)
+                S["n_samp"] = S["n_samp"] + 1
+            CGM_acc = zero
+            for _ in range(st - 1):
+                CGM_acc = CGM_acc + S["last_CGM"] / float(st)
+            S["last_CGM"] = jnp.clip(bg_m + noise, cfg.cgm_min, cfg.cgm_max)
+            CGM_acc = CGM_acc + S["last_CGM"] / float(st)
 
             # ---- reward / done (env.py:100-103, risk_diff env.py:27-33);
             # risk(prev CGM) is carried from the step that produced it ----
@@ -1167,147 +1044,80 @@ def _make_kernel(cfg: PallasRolloutConfig, n_blocks: int):
             if cfg.reward_kind == "neg_risk":
                 reward = -0.1 * risk_now
             else:
-                reward = prev_risk - risk_now
+                reward = S["prev_risk"] - risk_now
             done = (BG_acc < cfg.bg_done_low) | (BG_acc > cfg.bg_done_high)
-            donef = done.astype(jnp.float32)
 
-            # ---- write trajectory row ----
-            cgm_out[i_step] = CGM_acc
-            bg_out[i_step] = BG_acc
-            rew_out[i_step] = reward
-            done_out[i_step] = donef
-            cho_out[i_step] = CHO_acc
-            ins_out[i_step] = insulin
+            for ref, v in zip(
+                traj_refs,
+                (CGM_acc, BG_acc, reward, done.astype(jnp.float32), CHO_acc,
+                 insulin),
+            ):
+                ref[t] = v
 
-            prev_risk = risk_now
-            prev_cho = CHO_acc
-            ctrl_pprev = ctrl_prev  # trend baseline: the obs just acted on
-            ctrl_prev = CGM_acc
-            ins_prev = insulin
+            for i in range(13):
+                S[f"x{i}"] = xs[i]
+            S.update(
+                planned=planned, last_CHO=last_CHO, eating=eating,
+                last_Qsto=last_Qsto, foodtaken=foodtaken, t_min=t_min,
+                prev_risk=risk_now, prev_cho=CHO_acc,
+                ctrl_pprev=ctrl_prev,  # trend baseline: the obs acted on
+                ctrl_prev=CGM_acc, ins_prev=insulin,
+            )
 
-            # ---- auto-reset (rollout.py autoreset_step semantics); reset
-            # values come from the per-lane draw cache (refreshed every
-            # regen_every steps above) ----
-            if not cfg.deterministic and cfg.autoreset:
-                cgm0 = cache_cgm0  # derived once at the cache refresh
-                keep = 1.0 - donef
+            # ---- auto-reset (rollout.py autoreset_step semantics) from the
+            # per-lane draw cache ----
+            if stochastic and cfg.autoreset:
+                def fresh(n, v):
+                    S[n] = jnp.where(done, v, S[n])
 
-                def mix(old, new):
-                    return keep * old + donef * new
+                for i in range(13):
+                    fresh(f"x{i}", S[f"cx{i}"])
+                for n in ("planned", "last_CHO", "eating", "foodtaken",
+                          "pid_integ", "pid_prev", "prev_cho", "ins_prev",
+                          "iob"):
+                    fresh(n, zero)
+                fresh("last_Qsto", S["cx0"] + S["cx1"])
+                fresh("e", S["c_e"])
+                for i in range(4):
+                    fresh(f"lat{i}", S[f"clat{i}"])
+                # meal plan kept (i.i.d. across episodes — _reset_values);
+                # the next controller call sees the NEW episode's reset obs
+                for n in ("last_CGM", "ctrl_prev", "ctrl_pprev"):
+                    fresh(n, S["c_cgm0"])
+                fresh("prev_risk", S["c_risk0"])
+                zero_i = zero.astype(jnp.int32)
+                for n in ("t_min", "day", "seg", "n_samp"):
+                    fresh(n, zero_i)
+                fresh("start_min", S["c_start"])
+                fresh("lat_next", zero_i + 3)
+            return S, z_spare, a_spare
 
-                xs = tuple(mix(x, xn) for x, xn in zip(xs, cache_xs))
-                planned = keep * planned
-                last_CHO = keep * last_CHO
-                eating = keep * eating
-                last_Qsto = mix(last_Qsto, cache_xs[0] + cache_xs[1])
-                foodtaken = keep * foodtaken
-                last_CGM = mix(last_CGM, cgm0)
-                e_ar = mix(e_ar, cache_e)
-                lat = [mix(l, ln) for l, ln in zip(lat, cache_lat)]
-                # meal plan kept (i.i.d. across episodes — see _reset_values)
-                pid_integ = keep * pid_integ
-                pid_prev = keep * pid_prev
-                prev_risk = mix(prev_risk, cache_risk0)
-                # the next controller invocation sees the NEW episode's reset
-                # obs (autoreset_step carry semantics, envs/rollout.py)
-                ctrl_prev = mix(ctrl_prev, cgm0)
-                prev_cho = keep * prev_cho  # fresh episode: no announced meal
-                ins_prev = keep * ins_prev  # reset carry has insulin = 0
-                ctrl_pprev = mix(ctrl_pprev, cgm0)  # zero trend at reset
-                iob = keep * iob  # fresh episode: no insulin on board
-                keep_i = (1 - done).astype(jnp.int32)
-                done_i = done.astype(jnp.int32)
-                t_min = keep_i * t_min  # reset episode clock to 0
-                start_min = keep_i * start_min + done_i * cache_start
-                day = keep_i * day
-                seg = keep_i * seg
-                lat_next = keep_i * lat_next + done_i * 3
-                n_samp = keep_i * n_samp
+        S, _, _ = jax.lax.fori_loop(
+            jnp.int32(0), jnp.int32(T), step, (S, zero, zero)
+        )
 
-        if emit:
-            # bootstrap VALUE: the GAE tail value of the obs the NEXT step
-            # would act on, computed in-kernel (rst row 2)
-            @pl.when(t == n_tchunks - 1)
-            def _tail_value():
-                tf = (
-                    ctrl_prev * (1.0 / 400.0),
-                    (ctrl_prev - 140.0) * 0.01,
-                    jnp.tanh(ins_prev * inv3b),
-                    jnp.tanh(prev_cho * 0.1),
-                    jnp.tanh((ctrl_prev - ctrl_pprev) * 0.1),
-                    jnp.tanh(iob * inv120b),
-                    f7,
-                )
-                _, v_tail = nn_forward(tf)
-                rst_out[2] = v_tail
-        elif nn:
+        if nn:
             # bootstrap row: the obs the NEXT step would act on, for the
-            # learner's GAE tail value (rst rows 2..4)
-            @pl.when(t == n_tchunks - 1)
-            def _tail_obs():
-                rst_out[2] = ctrl_prev
-                rst_out[3] = ins_prev
-                rst_out[4] = prev_cho
-                rst_out[5] = ctrl_pprev
-                rst_out[6] = iob
-
-        # ---- store state back ----
-        for i in range(13):
-            fs[i] = xs[i]
-        fs[13], fs[14], fs[15] = planned, last_CHO, eating
-        fs[16], fs[17] = last_Qsto, foodtaken
-        fs[18], fs[19] = last_CGM, e_ar
-        for i in range(4):
-            fs[20 + i] = lat[i]
-        for i in range(6):
-            fs[24 + i] = meal_t[i]
-            fs[30 + i] = meal_a[i]
-        fs[36], fs[37] = pid_integ, pid_prev
-        fs[38] = prev_risk
-        fs[39] = prev_cho
-        fs[40] = ctrl_prev
-        for i in range(13):
-            fs[41 + i] = cache_xs[i]
-        fs[54] = cache_e
-        for i in range(4):
-            fs[55 + i] = cache_lat[i]
-        fs[59] = cache_cgm0
-        fs[60] = cache_risk0
-        fs[61] = ins_prev
-        fs[62] = ctrl_pprev
-        fs[63] = iob
-        is_[0], is_[1], is_[2] = t_min, start_min, day
-        is_[3], is_[4], is_[5] = seg, lat_next, n_samp
-        is_[6] = cache_start
+            # learner's GAE tail value (rst rows 2..6)
+            for r, n in enumerate(
+                ("ctrl_prev", "ins_prev", "prev_cho", "ctrl_pprev", "iob")
+            ):
+                rst_ref[2 + r] = S[n]
+        if cfg.persistent_state:
+            for i, n in enumerate(_F_NAMES):
+                sf_out[i] = S[n]
+            for i, n in enumerate(_I_NAMES):
+                si_out[i] = S[n]
 
     return kernel
 
 
-def make_pallas_rollout(cfg: PallasRolloutConfig, batch: int, interpret: bool = False):
-    """Build the compiled rollout: (packed_params, seed) -> traj dict.
-
-    ``packed_params`` from :func:`pack_params`; returns arrays [n_steps, B]
-    for CGM/BG/reward/done/CHO/insulin.
-
-    With ``cfg.exogenous_noise`` the runner takes two extra arrays:
-    ``run(packed, seed, reset_noise, step_noise)`` where ``reset_noise`` is
-    [2, rows, 128] (the env's two reset pops) and ``step_noise`` is
-    [n_steps, rows, 128] (one per step) — the same values the env path would
-    read from ``EnvParams.noise_seq[0:2]`` and ``[2:n_steps+2]``.
-    """
-    R = cfg.block_rows
-    block = R * LANES
-    if batch % block:
-        raise ValueError(f"batch {batch} must be a multiple of {block}")
-    if cfg.n_steps % cfg.t_chunk:
-        raise ValueError("n_steps must be a multiple of t_chunk")
+def _validate(cfg: PallasRolloutConfig):
     if cfg.exogenous_noise and cfg.autoreset:
         raise ValueError(
             "exogenous_noise requires autoreset=False (in-step resets would "
             "need reset-noise indexing the planes don't carry)"
         )
-    if cfg.prng not in ("hw", "sw"):
-        raise ValueError(f"prng must be 'hw' or 'sw'; got {cfg.prng!r}")
     if (
         cfg.controller == "nn"
         and cfg.exogenous_noise
@@ -1322,8 +1132,12 @@ def make_pallas_rollout(cfg: PallasRolloutConfig, batch: int, interpret: bool = 
             "policy-mean actions + exogenous CGM noise "
             "(tests/test_fused_ppo.py)"
         )
-    if cfg.nn_hidden % 8:
-        raise ValueError("nn_hidden must be a multiple of 8 (sublane tile)")
+    if cfg.controller not in ("pid", "bb", "const", "nn"):
+        raise ValueError(f"unknown controller {cfg.controller!r}")
+    if cfg.controller == "nn" and not _is_pow2(cfg.nn_hidden):
+        raise ValueError(
+            f"nn_hidden must be a power of two; got {cfg.nn_hidden}"
+        )
     if cfg.nn_decoder not in ("sigmoid", "residual_bb"):
         raise ValueError(
             f"nn_decoder must be 'sigmoid' or 'residual_bb'; "
@@ -1349,109 +1163,88 @@ def make_pallas_rollout(cfg: PallasRolloutConfig, batch: int, interpret: bool = 
             f"and regen_every * sample_time <= 288 (the pre-5am window that "
             f"makes deferred midnight redraws observationally exact)"
         )
-    n_blocks = batch // block
-    n_tchunks = cfg.n_steps // cfg.t_chunk
-    rows = batch // LANES
+    if cfg.n_steps < 1:
+        raise ValueError("n_steps must be >= 1")
 
-    kernel = _make_kernel(cfg, n_blocks)
-    TC = cfg.t_chunk
 
+_TRAJ_KEYS = ("CGM", "BG", "reward", "done", "CHO", "insulin")
+_NN_KEYS = ("raw", "octrl", "oins", "ocho", "oprev", "oiob")
+_TAIL_KEYS = ("tail_octrl", "tail_oins", "tail_ocho", "tail_oprev",
+              "tail_oiob")
+
+
+def _pad_lanes(a, n: int):
+    """Pad the last (patient) axis to n lanes by repeating the last
+    patient — padded lanes run finite physics and are sliced away."""
+    extra = n - a.shape[-1]
+    if extra == 0:
+        return a
+    return jnp.concatenate(
+        [a, jnp.repeat(a[..., -1:], extra, axis=-1)], axis=-1
+    )
+
+
+def make_pallas_rollout(cfg: PallasRolloutConfig, batch: int, interpret: bool = False):
+    """Build the rollout: ``run(packed_params, seed, ...) -> traj dict``.
+
+    ``packed_params`` from :func:`pack_params` ([NP_PLANES, batch]);
+    returns arrays [n_steps, batch] for CGM/BG/reward/done/CHO/insulin and
+    [batch] reset samples BG0/CGM0.  Any batch works: lanes are padded to
+    a multiple of the program block inside and sliced back.
+
+    With ``cfg.exogenous_noise`` the runner takes ``reset_noise`` [2, B]
+    (the env's two reset pops) and ``step_noise`` [n_steps, B] (one per
+    step) — the values the env path would read from
+    ``EnvParams.noise_seq[0:2]`` and ``[2:n_steps+2]``.
+
+    ``step0`` is the global index of this call's first step: the random
+    streams are a function of (seed, lane, global step), so a long horizon
+    run as chunks (``step0 = c * n_steps`` with persistent_state) draws
+    exactly the numbers a single call would.  ``lane0`` offsets the lane
+    index the same way (the sharded runner passes each device's first
+    global lane, so a sharded run equals the single-device one).
+    """
+    _validate(cfg)
+    block = block_for(batch, cfg.block)
+    n_prog = -(-batch // block)
+    Bp = n_prog * block
+    T = cfg.n_steps
     nn = cfg.controller == "nn"
-    emit = nn and cfg.nn_emit_learner_rows
-    if cfg.nn_emit_learner_rows and not nn:
-        raise ValueError("nn_emit_learner_rows requires controller='nn'")
-    n_rst = 3 if emit else (7 if nn else 2)
-    out_field = jax.ShapeDtypeStruct((cfg.n_steps, rows, LANES), jnp.float32)
-    traj_spec = pl.BlockSpec(
-        (TC, R, LANES), lambda b, t: (t, b, 0), memory_space=pltpu.VMEM
-    )
-    rst_field = jax.ShapeDtypeStruct((n_rst, rows, LANES), jnp.float32)
-    rst_spec = pl.BlockSpec(
-        (n_rst, R, LANES), lambda b, t: (0, b, 0), memory_space=pltpu.VMEM
-    )
-    state_f_field = jax.ShapeDtypeStruct((NS_F, rows, LANES), jnp.float32)
-    state_i_field = jax.ShapeDtypeStruct((NS_I, rows, LANES), jnp.int32)
-    state_f_spec = pl.BlockSpec(
-        (NS_F, R, LANES), lambda b, t: (0, b, 0), memory_space=pltpu.VMEM
-    )
-    state_i_spec = pl.BlockSpec(
-        (NS_I, R, LANES), lambda b, t: (0, b, 0), memory_space=pltpu.VMEM
-    )
+    kernel = _make_kernel(cfg, block)
 
-    in_specs = [
-        pl.BlockSpec(memory_space=pltpu.SMEM),  # (seed, init)
-        pl.BlockSpec(
-            (NP_PLANES, R, LANES),
-            lambda b, t: (0, b, 0),
-            memory_space=pltpu.VMEM,
-        ),
-    ]
+    def planes(n):
+        return pl.BlockSpec((n, block), lambda b: (0, b))
+
+    def field(n, dtype=jnp.float32):
+        return jax.ShapeDtypeStruct((n, Bp), dtype)
+
+    in_specs = [pl.BlockSpec((4,), lambda b: (0,)), planes(NP_PLANES)]
     if nn:
         H = cfg.nn_hidden
-        in_specs.append(
-            pl.BlockSpec(
-                (H, H + 16), lambda b, t: (0, 0), memory_space=pltpu.VMEM
-            )
-        )
-        in_specs.append(
-            pl.BlockSpec(memory_space=pltpu.SMEM)  # (b_mu, log_std)
-        )
+        in_specs.append(pl.BlockSpec((_W2_ROW + H, H), lambda b: (0, 0)))
     if cfg.exogenous_noise:
-        in_specs += [
-            pl.BlockSpec(  # reset noise: both pops, every grid step
-                (2, R, LANES), lambda b, t: (0, b, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(  # step noise: this t_chunk's rows
-                (TC, R, LANES), lambda b, t: (t, b, 0), memory_space=pltpu.VMEM
-            ),
-        ]
+        in_specs += [planes(2), planes(T)]
     if cfg.persistent_state:
-        in_specs += [state_f_spec, state_i_spec]
-
-    if emit:
-        # ONE [10, T, rows, 128] learner-row buffer instead of the six
-        # observation planes: rows 0-6 features, 7 value, 8 raw, 9 logp
-        # (see PallasRolloutConfig.nn_emit_learner_rows)
-        lrn_field = jax.ShapeDtypeStruct(
-            (10, cfg.n_steps, rows, LANES), jnp.float32
-        )
-        lrn_spec = pl.BlockSpec(
-            (10, TC, R, LANES), lambda b, t: (0, t, b, 0),
-            memory_space=pltpu.VMEM,
-        )
-        out_shape = [out_field] * 6 + [lrn_field] + [rst_field]
-        out_specs = [traj_spec] * 6 + [lrn_spec] + [rst_spec]
-    else:
-        n_traj = 12 if nn else 6
-        out_shape = [out_field] * n_traj + [rst_field]
-        out_specs = [traj_spec] * n_traj + [rst_spec]
-    scratch = []
+        in_specs += [planes(NS_F), planes(NS_I)]
+    n_traj = 12 if nn else 6
+    n_rst = 7 if nn else 2
+    out_shape = [field(T)] * n_traj + [field(n_rst)]
+    out_specs = [planes(T)] * n_traj + [planes(n_rst)]
     if cfg.persistent_state:
-        out_shape += [state_f_field, state_i_field]
-        out_specs += [state_f_spec, state_i_spec]
-    else:
-        scratch = [
-            pltpu.VMEM((NS_F, R, LANES), jnp.float32),
-            pltpu.VMEM((NS_I, R, LANES), jnp.int32),
-        ]
+        out_shape += [field(NS_F), field(NS_I, jnp.int32)]
+        out_specs += [planes(NS_F), planes(NS_I)]
 
-    # The 'nn' configs sit within ~1 MB of the default 16 MB scoped-VMEM
-    # budget (12-13 output planes + state + params + double buffering);
-    # raise Mosaic's limit so the t_chunk=16 pipeline keeps its depth —
-    # v5e VMEM is far larger than the 16 MB default scoped cap.
-    compiler_params = (
-        pltpu.CompilerParams(vmem_limit_bytes=64 * 1024 * 1024)
-        if nn else None
-    )
     call = pl.pallas_call(
         kernel,
-        grid=(n_blocks, n_tchunks),
+        grid=(n_prog,),
         in_specs=in_specs,
-        out_shape=out_shape,
         out_specs=out_specs,
-        scratch_shapes=scratch,
-        compiler_params=compiler_params,
+        out_shape=out_shape,
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=cfg.num_warps, num_stages=1
+        ),
         interpret=interpret,
+        name=f"simglucose_rollout_{cfg.controller}",
     )
 
     def run(
@@ -1462,89 +1255,56 @@ def make_pallas_rollout(cfg: PallasRolloutConfig, batch: int, interpret: bool = 
         weights=None,
         state=None,
         init=None,
+        step0=0,
+        lane0=0,
     ) -> dict:
         """Run the kernel.  For 'nn' configs pass ``weights`` (from
         :func:`pack_policy_weights`).  For persistent configs pass
-        ``state=(state_f, state_i)`` (zeros on the first call) and
-        ``init`` (traced int32: 1 = draw fresh episodes and ignore the
-        incoming state, 0 = continue it); the result dict then carries
-        ``state_f``/``state_i`` to thread into the next call.  The reset
-        rows (BG0/CGM0) are only meaningful on init=1 calls."""
-        seed_s = jnp.asarray(seed, jnp.int32).reshape(-1)[0]
-        init_s = (
-            jnp.int32(1) if init is None else jnp.asarray(init, jnp.int32)
+        ``state=(state_f, state_i)`` ([NS_F, B] / [NS_I, B]; zeros on the
+        first call) and ``init`` (traced int32: 1 = draw fresh episodes and
+        ignore the incoming state, 0 = continue it); the result dict then
+        carries ``state_f``/``state_i`` to thread into the next call.  The
+        reset rows (BG0/CGM0) are only meaningful on init=1 calls."""
+        i32 = lambda v: jnp.asarray(v, jnp.int32).reshape(-1)[0]
+        init_s = jnp.int32(1) if init is None else i32(init)
+        scal = jnp.stack([i32(seed), init_s, i32(step0), i32(lane0)])
+        pad = lambda a, dtype=jnp.float32: _pad_lanes(
+            jnp.asarray(a, dtype), Bp
         )
-        seed_arr = jnp.stack([seed_s, init_s])
-        args = [seed_arr, packed_params]
+        args = [scal, pad(packed_params)]
         if nn:
             if weights is None:
                 raise ValueError("'nn' config needs weights= "
                                  "(pack_policy_weights)")
-            w = jnp.asarray(weights, jnp.float32)
-            args.append(w)
-            # (b_mu, log_std[, b_v]) -> SMEM scalars
-            args.append(w[0:3, 9] if emit else w[0:2, 9])
+            args.append(jnp.asarray(weights, jnp.float32))
         if cfg.exogenous_noise:
             if reset_noise is None or step_noise is None:
                 raise ValueError(
-                    "exogenous_noise config needs reset_noise [2, rows, 128] "
-                    "and step_noise [n_steps, rows, 128]"
+                    "exogenous_noise config needs reset_noise [2, B] "
+                    "and step_noise [n_steps, B]"
                 )
-            args += [
-                jnp.asarray(reset_noise, jnp.float32),
-                jnp.asarray(step_noise, jnp.float32),
-            ]
+            args += [pad(reset_noise), pad(step_noise)]
         if cfg.persistent_state:
             if state is None:
                 state = (
-                    jnp.zeros((NS_F, rows, LANES), jnp.float32),
-                    jnp.zeros((NS_I, rows, LANES), jnp.int32),
+                    jnp.zeros((NS_F, batch), jnp.float32),
+                    jnp.zeros((NS_I, batch), jnp.int32),
                 )
-            args += [state[0], state[1]]
+            args += [pad(state[0]), pad(state[1], jnp.int32)]
         outs = call(*args)
-        cgm, bg, rew, done, cho, ins = outs[:6]
+        cut = lambda a: a[..., :batch]
+        res = {k: cut(o) for k, o in zip(_TRAJ_KEYS, outs[:6])}
+        res["done"] = res["done"] > 0.5
         k = 6
-        unb = lambda a: a.reshape(cfg.n_steps, batch)
-        res = {
-            "CGM": unb(cgm),
-            "BG": unb(bg),
-            "reward": unb(rew),
-            "done": unb(done) > 0.5,
-            "CHO": unb(cho),
-            "insulin": unb(ins),
-        }
-        if emit:
-            lrn = outs[k]
-            k += 1
-            # [10, T, rows, 128] -> the learner's feature-major [10, T*B]
-            # buffer (column index = t*B + b, exactly pack_minibatch_rows'
-            # row-major flattening) + a [T, B] view of the value row
-            res["learner"] = lrn.reshape(10, cfg.n_steps * batch)
-            res["value"] = lrn[7].reshape(cfg.n_steps, batch)
-        elif nn:
-            res["raw"] = unb(outs[k])
-            res["octrl"] = unb(outs[k + 1])
-            res["oins"] = unb(outs[k + 2])
-            res["ocho"] = unb(outs[k + 3])
-            res["oprev"] = unb(outs[k + 4])
-            res["oiob"] = unb(outs[k + 5])
-            k += 6
-        rst = outs[k]
-        k += 1
-        res["BG0"] = rst[0].reshape(batch)
-        res["CGM0"] = rst[1].reshape(batch)
-        if emit:
-            # in-kernel bootstrap value (GAE tail)
-            res["tail_value"] = rst[2].reshape(batch)
-        elif nn:
-            # tail observation inputs (bootstrap value for GAE)
-            res["tail_octrl"] = rst[2].reshape(batch)
-            res["tail_oins"] = rst[3].reshape(batch)
-            res["tail_ocho"] = rst[4].reshape(batch)
-            res["tail_oprev"] = rst[5].reshape(batch)
-            res["tail_oiob"] = rst[6].reshape(batch)
+        if nn:
+            res.update({n: cut(o) for n, o in zip(_NN_KEYS, outs[6:12])})
+            k = 12
+        rst = cut(outs[k])
+        res["BG0"], res["CGM0"] = rst[0], rst[1]
+        if nn:
+            res.update({n: rst[2 + i] for i, n in enumerate(_TAIL_KEYS)})
         if cfg.persistent_state:
-            res["state_f"], res["state_i"] = outs[k], outs[k + 1]
+            res["state_f"], res["state_i"] = cut(outs[k + 1]), cut(outs[k + 2])
         return res
 
     return run
@@ -1557,98 +1317,68 @@ def make_sharded_pallas_rollout(
     axis: str = "dp",
     interpret: bool = False,
 ):
-    """Multi-chip fast path: the in-VMEM kernel under ``shard_map`` over a
-    device mesh axis — each device runs its shard of the patient batch with
-    zero inter-chip communication during the rollout (the workload is
+    """Multi-device fast path: the kernel under ``shard_map`` over a device
+    mesh axis — each device runs its shard of the patient batch with zero
+    inter-device communication during the rollout (the workload is
     embarrassingly parallel over patients, like the reference's process
-    pool, sim_engine.py:65-76).  Per-device RNG streams are decorrelated by
-    folding the mesh position into the seed.
+    pool, sim_engine.py:65-76).  Each device passes its first global lane
+    as ``lane0``, so every patient draws the same random stream it would
+    draw in a single-device run: a sharded run equals the unsharded one.
 
-    Supports EVERY kernel configuration the single-device runner does, with
-    the same ``run(packed_params, seed, reset_noise=, step_noise=, weights=,
-    state=, init=)`` signature:
-
-      * 'nn' controller — ``weights`` replicated to every device; the extra
-        raw/octrl/oins/ocho trajectory planes and tail observations come
-        back batch-sharded (the fused PPO actor, rl/fused.py).
-      * ``persistent_state`` — ``state_f``/``state_i`` stay sharded over the
-        batch axis across calls.
-      * ``exogenous_noise`` — the caller-supplied noise planes are consumed
-        batch-sharded, exactly like the packed params.
-
-    ``batch`` is GLOBAL; it must split evenly into per-device batches that
-    satisfy the single-device kernel's tiling constraints (the inner builder
-    raises otherwise).  Returns global-batch arrays ([n_steps, batch]
-    trajectories, [batch] reset samples).
+    Supports every kernel configuration the single-device runner does,
+    with the same ``run(packed_params, seed, reset_noise=, step_noise=,
+    weights=, state=, init=, step0=)`` signature: 'nn' weights are
+    replicated; state, noise planes and outputs are sharded over the
+    batch axis.  ``batch`` is GLOBAL and must split evenly over the
+    devices of ``axis``.
     """
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
     n_dev = mesh.shape[axis]
-    if batch % (n_dev * LANES):
+    if batch % n_dev:
         raise ValueError(
-            f"global batch {batch} must divide into {n_dev} devices x "
-            f"{LANES} lanes"
-        )
-    if cfg.nn_emit_learner_rows:
-        raise ValueError(
-            "nn_emit_learner_rows is the single-device fused-learner fast "
-            "path (the [10, T*B] buffer's flat column index interleaves "
-            "the batch axis); the mesh trainer uses the XLA learner with "
-            "the observation-plane outputs (rl/fused.py kernel_prep=False)"
+            f"global batch {batch} must divide into {n_dev} devices"
         )
     per = batch // n_dev
     inner = make_pallas_rollout(cfg, per, interpret=interpret)
     nn = cfg.controller == "nn"
-    rows = batch // LANES
+    lanes = P(None, axis)
 
-    # (in_spec, kwarg-builder) per optional input, in the order run() packs
-    # them; sharded planes follow the packed-params layout [planes, rows, 128]
-    shard3 = P(None, axis, None)
+    # optional inputs in the order run() packs them
     rest_specs = []
     if cfg.exogenous_noise:
-        rest_specs += [shard3, shard3]  # reset_noise, step_noise
+        rest_specs += [lanes, lanes]  # reset_noise, step_noise
     if nn:
         rest_specs += [P()]  # weights (replicated)
     if cfg.persistent_state:
-        rest_specs += [shard3, shard3, P()]  # state_f, state_i, init
+        rest_specs += [lanes, lanes, P()]  # state_f, state_i, init
 
-    def device_fn(packed, seed, *rest):
-        dseed = seed + jax.lax.axis_index(axis) * jnp.int32(7919)
+    def device_fn(packed, seed, step0, *rest):
+        lane0 = jax.lax.axis_index(axis) * per
         kw = {}
-        i = 0
+        rest = list(rest)
         if cfg.exogenous_noise:
-            kw["reset_noise"], kw["step_noise"] = rest[i], rest[i + 1]
-            i += 2
+            kw["reset_noise"], kw["step_noise"] = rest.pop(0), rest.pop(0)
         if nn:
-            kw["weights"] = rest[i]
-            i += 1
+            kw["weights"] = rest.pop(0)
         if cfg.persistent_state:
-            kw["state"] = (rest[i], rest[i + 1])
-            kw["init"] = rest[i + 2]
-            i += 3
-        return inner(packed, dseed, **kw)
+            kw["state"] = (rest.pop(0), rest.pop(0))
+            kw["init"] = rest.pop(0)
+        return inner(packed, seed, step0=step0, lane0=lane0, **kw)
 
-    out_specs = {
-        k: P(None, axis)
-        for k in ("CGM", "BG", "reward", "done", "CHO", "insulin")
-    }
-    out_specs["BG0"] = P(axis)
-    out_specs["CGM0"] = P(axis)
+    out_specs = {k: lanes for k in _TRAJ_KEYS}
+    out_specs["BG0"] = out_specs["CGM0"] = P(axis)
     if nn:
-        for k in ("raw", "octrl", "oins", "ocho", "oprev", "oiob"):
-            out_specs[k] = P(None, axis)
-        for k in ("tail_octrl", "tail_oins", "tail_ocho", "tail_oprev",
-                  "tail_oiob"):
-            out_specs[k] = P(axis)
+        out_specs.update({k: lanes for k in _NN_KEYS})
+        out_specs.update({k: P(axis) for k in _TAIL_KEYS})
     if cfg.persistent_state:
-        out_specs["state_f"] = shard3
-        out_specs["state_i"] = shard3
+        out_specs["state_f"] = out_specs["state_i"] = lanes
 
     sharded = shard_map(
         device_fn,
         mesh=mesh,
-        in_specs=(P(None, axis, None), P(), *rest_specs),
+        in_specs=(lanes, P(), P(), *rest_specs),
         out_specs=out_specs,
         check_vma=False,
     )
@@ -1661,19 +1391,18 @@ def make_sharded_pallas_rollout(
         weights=None,
         state=None,
         init=None,
+        step0=0,
     ) -> dict:
         rest = []
         if cfg.exogenous_noise:
             if reset_noise is None or step_noise is None:
                 raise ValueError(
-                    "exogenous_noise config needs reset_noise [2, rows, 128] "
-                    "and step_noise [n_steps, rows, 128] (global rows; "
-                    "sharded over the batch axis like packed_params)"
+                    "exogenous_noise config needs reset_noise [2, B] and "
+                    "step_noise [n_steps, B] (global lanes; sharded over "
+                    "the batch axis like packed_params)"
                 )
             rest += [
                 jnp.asarray(reset_noise, jnp.float32),
-                # step noise arrives [n_steps, rows, 128]; shard_map splits
-                # the rows axis, matching the per-device kernel's view
                 jnp.asarray(step_noise, jnp.float32),
             ]
         if nn:
@@ -1685,8 +1414,8 @@ def make_sharded_pallas_rollout(
         if cfg.persistent_state:
             if state is None:
                 state = (
-                    jnp.zeros((NS_F, rows, LANES), jnp.float32),
-                    jnp.zeros((NS_I, rows, LANES), jnp.int32),
+                    jnp.zeros((NS_F, batch), jnp.float32),
+                    jnp.zeros((NS_I, batch), jnp.int32),
                 )
             init_s = (
                 jnp.int32(1) if init is None else jnp.asarray(init, jnp.int32)
@@ -1695,7 +1424,10 @@ def make_sharded_pallas_rollout(
         elif init is not None:
             raise ValueError("init= only applies to persistent_state configs")
         return sharded(
-            packed_params, jnp.asarray(seed, jnp.int32).reshape(()), *rest
+            packed_params,
+            jnp.asarray(seed, jnp.int32).reshape(()),
+            jnp.asarray(step0, jnp.int32).reshape(()),
+            *rest,
         )
 
     return run

@@ -2,7 +2,7 @@
 
 The reference's only multi-worker story is a single-machine process pool
 gathering DataFrames (reference: simulation/sim_engine.py:65-76).  The
-TPU-native equivalent spans hosts: one process per host, a global mesh over
+equivalent here spans hosts: one process per host, a global mesh over
 all devices, and per-host IO over each host's addressable shard of the
 patient batch (the analog of the reference's per-worker CSV writes,
 sim_engine.py:44-49).
@@ -27,8 +27,9 @@ def initialize(
     process_id: Optional[int] = None,
 ) -> None:
     """Bring up jax.distributed (no-op on single-process runs with no
-    coordinator).  On TPU pods the arguments are auto-detected from the
-    environment; pass them explicitly elsewhere."""
+    coordinator).  Where a cluster environment provides them the arguments
+    are auto-detected; pass them explicitly elsewhere (on a single GPU
+    host, coordinator_address='localhost:<port>')."""
     if coordinator_address is None and num_processes is None:
         try:
             jax.distributed.initialize()

@@ -1,16 +1,16 @@
 """Device-mesh sharding for cohort-scale simulation and training.
 
 The reference's only parallelism is an embarrassingly-parallel process pool
-over patients (reference: simulation/sim_engine.py:65-76).  The TPU-native
-equivalent shards the patient batch over a ``jax.sharding.Mesh``:
+over patients (reference: simulation/sim_engine.py:65-76).  The equivalent
+here shards the patient batch over a ``jax.sharding.Mesh``:
 
   * ``dp`` axis — patients (pure data parallel; zero communication during
-    rollout, ICI collectives only for metric reductions / learner gradients)
+    rollout, collectives only for metric reductions / learner gradients)
   * ``tp`` axis — optional tensor parallelism for the RL policy/value
     networks (hidden dimension sharded; XLA inserts the all-reduces)
 
 Everything routes through ``jax.jit`` with explicit ``NamedSharding``
-constraints — XLA lays out collectives over ICI.  Multi-host: the same code
+constraints — XLA hands the collectives to NCCL on GPUs.  Multi-host: the same code
 runs under ``jax.distributed`` initialization; ``jax.make_mesh`` spans all
 processes' devices and per-host IO uses addressable shards
 (:func:`gather_to_host`).

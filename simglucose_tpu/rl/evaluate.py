@@ -198,9 +198,7 @@ def evaluate_controller(
         lambda p, k, ci: rollout_batch(
             cfg, p, k, ci, ctrl_fn, n_steps,
             start_min=start_min, ctrl_in_axes=ctrl_axes,
-            # pregen is bit-identical but measured slower on TPU (the
-            # scan-xs feeding costs more than the RNG it removes) — keep
-            # the streaming path (see sim/engine.py _simulate_xla note)
+            # the streaming noise/meal path (pregen is bit-identical)
             pregen=False,
         )
     )
@@ -224,33 +222,40 @@ def evaluate_policy_kernel(
     random_init_bg: bool = False,
     interpret: bool = False,
     shard: bool = True,
-    t_chunk: int = None,
 ) -> dict:
-    """Large-cohort policy evaluation ON THE PALLAS KERNEL (round-3 VERDICT
-    weak item 8: the XLA harness is fine at 30 patients, but a 4096-patient
-    CI of the PID-vs-PPO comparison deserves the 1B-steps/s path).
+    """Large-cohort policy evaluation ON THE PALLAS KERNEL: the XLA harness
+    is fine at 30 patients, but a 4096-patient check of the PID-vs-PPO
+    comparison deserves the kernel path.
 
     Runs the 'nn' kernel with ``nn_sample_actions=False`` — policy-MEAN
     actions (exactly :func:`policy_controller`'s deployment law) while the
     env stays stochastic — fixed horizon, no auto-reset (the reference's
     batch_sim protocol, sim_engine.py:29-39).  Same return shape as
-    :func:`evaluate_controller`.  Seed reproducibility is law-level (TPU
-    hardware PRNG), not bit-level; pair PPO-vs-PID comparisons by running
-    both through kernel engines at the same seed.
+    :func:`evaluate_controller`.  Seed reproducibility is law-level (the
+    kernel's counter-based generator, not threefry); pair PPO-vs-PID
+    comparisons by running both through kernel engines at the same seed.
 
-    The trunk must be relu (the kernel's MLP); pack_policy_weights raises
-    otherwise."""
+    Needs a GPU, or ``interpret=True`` (the Pallas interpreter); raises
+    on other backends rather than silently interpreting.  The trunk must
+    be relu (the kernel's MLP); pack_policy_weights raises otherwise."""
     from simglucose_tpu.envs.build import make_env
     from simglucose_tpu.models.uva_padova import basal_rate
+    from simglucose_tpu.ops.backend import XLA, kernel_mode
     from simglucose_tpu.ops.pallas_rollout import (
-        LANES,
         config_for_sensor,
         make_pallas_rollout,
         make_sharded_pallas_rollout,
         pack_params,
         pack_policy_weights,
     )
+    from simglucose_tpu.params import load_quest_params
 
+    if kernel_mode(interpret) == XLA:
+        raise ValueError(
+            f"evaluate_policy_kernel needs a compiled kernel (a GPU); "
+            f"backend {jax.default_backend()!r} has none — pass "
+            "interpret=True or use evaluate_controller"
+        )
     if isinstance(patient_names, str):
         patient_names = [patient_names]
     patient_names = list(patient_names)
@@ -258,18 +263,9 @@ def evaluate_policy_kernel(
     # shard=False keeps the kernel single-device (e.g. interpret-mode CI,
     # where an 8-way shard_map multiplies the Python-interpret cost)
     n_dev = jax.device_count() if shard else 1
-    unit = LANES * n_dev
-    padded = B if B % unit == 0 else B + (unit - B % unit)
+    padded = -(-B // n_dev) * n_dev
     names_p = [patient_names[i % B] for i in range(padded)]
-    rows_per_dev = padded // LANES // n_dev
-    block_rows = max(r for r in (32, 16, 8, 4, 2, 1) if rows_per_dev % r == 0)
-    n_steps = int(hours * 60) // int(
-        config_for_sensor(sensor).sample_time
-    )
-    if t_chunk is None:
-        t_chunk = max(c for c in (16, 8, 6, 5, 4, 3, 2, 1) if n_steps % c == 0)
-
-    from simglucose_tpu.params import load_quest_params
+    n_steps = int(hours * 60) // int(config_for_sensor(sensor).sample_time)
 
     _, env_params = make_env(names_p, sensor=sensor, batch=True,
                              dtype=np.float32)
@@ -278,19 +274,15 @@ def evaluate_policy_kernel(
     quest = load_quest_params(names_p, dtype=np.float32)
     packed = pack_params(env_params.patient, basal_rate(env_params.patient),
                          quest=quest)
-    H = params.w1.shape[1]
     cfg = config_for_sensor(
         sensor,
         n_steps=n_steps,
-        block_rows=block_rows,
-        t_chunk=t_chunk,
         controller="nn",
-        nn_hidden=H,
+        nn_hidden=params.w1.shape[1],
         nn_action_scale=float(params.action_scale),
         nn_scale_by_basal=bool(params.scale_by_basal),
         nn_decoder=getattr(params, "decoder", "sigmoid"),
         nn_sample_actions=False,
-        prng="hw" if jax.default_backend() == "tpu" else "sw",
         autoreset=False,
         random_init_bg=random_init_bg,
         fixed_start_min=start_min,
@@ -303,13 +295,10 @@ def evaluate_policy_kernel(
 
         mesh = make_mesh(dp=n_dev, tp=1)
         packed = jax.device_put(packed, NamedSharding(mesh, P(None, "dp")))
-        traj = make_sharded_pallas_rollout(
-            cfg, padded, mesh, interpret=interpret
-        )(packed, seed, weights=weights)
+        run = make_sharded_pallas_rollout(cfg, padded, mesh, interpret=interpret)
     else:
-        traj = make_pallas_rollout(cfg, padded, interpret=interpret)(
-            packed, seed, weights=weights
-        )
+        run = make_pallas_rollout(cfg, padded, interpret=interpret)
+    traj = jax.jit(lambda p, w: run(p, seed, weights=w))(packed, weights)
     bg = np.asarray(traj["BG"]).T[:B]  # [B, T]
     out = cohort_stats(bg)
     out["names"] = patient_names

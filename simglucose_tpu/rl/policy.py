@@ -52,7 +52,7 @@ class PolicyParams:
     ``act`` — the trunk activation ('tanh' or 'relu') — is STATIC pytree
     metadata, not a leaf: it travels with the params through jit/grad/optax
     and into checkpoints' tree structure, so a network can never be applied
-    with the wrong nonlinearity.  The pallas in-kernel actor
+    with the wrong nonlinearity.  The in-kernel actor
     (ops/pallas_rollout.py 'nn' controller) implements relu only;
     :func:`~simglucose_tpu.ops.pallas_rollout.pack_policy_weights` rejects
     anything else.
@@ -281,14 +281,14 @@ def policy_apply(
     """Returns (mu, log_std, value) for obs [..., OBS_DIM].
 
     All matmuls carry ``preferred_element_type=float32`` so reduced-
-    precision inputs still accumulate in f32 on the MXU.
+    precision inputs still accumulate in f32, and precision HIGHEST: f32
+    inputs are multiplied in full f32, never TF32 (a GPU's default for f32
+    products), which matches the kernel's in-kernel policy
+    (ops/pallas_rollout.py) and the CPU.
     ``compute_dtype=jnp.bfloat16`` runs the trunk in bf16: matmul inputs
     AND the materialized hidden activations are bf16 (f32 accumulation,
     f32 bias-add in the matmul epilogue, f32 heads/outputs); params and
-    optimizer state stay f32 (see PPOConfig.learner_bf16).  The learner's
-    grad step is HBM-bound on the hidden activations (measured: bf16 at
-    the dot inputs alone — f32 h in memory — gains nothing), so the bf16
-    STORAGE is what halves the traffic.
+    optimizer state stay f32 (see PPOConfig.learner_bf16).
 
     The trunk activation comes from ``params.act`` (static metadata — see
     :class:`PolicyParams`), so a checkpoint is always applied with the
@@ -305,7 +305,8 @@ def policy_apply(
         return x
 
     dot = lambda a, b: jnp.dot(
-        cast(a), cast(b), preferred_element_type=jnp.float32
+        cast(a), cast(b), preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
     )
     h = cast(
         f(

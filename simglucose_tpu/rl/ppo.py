@@ -6,13 +6,14 @@ axis) and the learner updates a shared policy with PPO.  Everything — env
 physics, action sampling, GAE, the clipped surrogate, and the optax update —
 lives in ONE jitted program per iteration; under GSPMD the batch stays
 sharded over 'dp', policy weights shard over 'tp', and XLA inserts the
-gradient all-reduce over ICI (the "sharded PPO learner via collectives").
+gradient all-reduce between devices (the "sharded PPO learner via
+collectives").
 """
 from __future__ import annotations
 
 import dataclasses
 from functools import partial
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -45,14 +46,12 @@ class PPOConfig:
     lr: float = 3e-4
     max_grad_norm: float = 0.5
     max_basal: float = 30.0  # Insulet pump limit (params/pump_params.csv)
-    # minibatch shuffling granularity (rows).  A full random permutation of
-    # T*B rows costs a per-row gather — measured 46 ms of a 73 ms iteration
-    # on v5e (random row gathers are scalar-core driven).  Shuffling
-    # contiguous blocks of `shuffle_block` rows instead makes the gather a
-    # DMA-friendly block copy (~1 ms) while still mixing time steps and
-    # patients across minibatches (a block is 1/64th of one time step's
-    # lanes at B=8192).  Rounded down to a power-of-two divisor of the
-    # minibatch size at trace time.
+    # minibatch shuffling granularity (rows).  Shuffling contiguous blocks
+    # of `shuffle_block` rows instead of single rows turns the minibatch
+    # gather into a block copy while still mixing time steps and patients
+    # across minibatches (a block is 1/16th of one time step's lanes at
+    # B=8192).  Rounded down to a power-of-two divisor of the minibatch
+    # size at trace time.
     shuffle_block: int = 512
     # reset-candidate / midnight-regen sampling cadence for the XLA rollout
     # (envs/rollout.py autoreset_step_with_candidate): 1 = exact per-step
@@ -85,27 +84,12 @@ class PPOConfig:
     decoder: str = "sigmoid"
     init_log_std: float = -0.5
     # mixed-precision learner: cast matmul inputs (activations + weights) to
-    # bf16 in the PPO loss forward/backward — f32 accumulation on the MXU,
+    # bf16 in the PPO loss forward/backward — f32 accumulation,
     # f32 params/optimizer state (policy_apply compute_dtype).  ~2x the
     # learner matmul throughput; the policy ratio stays consistent because
     # logp_old and the minibatch logp are recomputed by the same bf16
     # forward in the fused trainer.  Off by default (CI trains f32).
     learner_bf16: bool = False
-    # pallas learner modes (ops/pallas_ppo_learner.py):
-    #   True | 'step' — each minibatch grad step is ONE fused kernel
-    #     (forward + clipped-surrogate loss + hand-derived backward over
-    #     VMEM-resident row tiles, shuffle gathered via scalar-prefetched
-    #     block indices) instead of XLA's ~10 HBM-streaming kernels;
-    #   'epoch' — the WHOLE learner (every epoch, minibatch, global-norm
-    #     clip, and adam update) is one kernel launch: weights + moments
-    #     live in VMEM scratch across the grid, optax's exact math applied
-    #     at minibatch boundaries.
-    # Under a pure-dp mesh the 'step' kernel runs per device inside
-    # shard_map with one gradient psum per minibatch (_update_pallas_dp);
-    # tp-sharded weights and the 'epoch' kernel fall back to the XLA
-    # learner under a mesh.
-    # Gradient/update parity pinned by tests/test_pallas_ppo_learner.py.
-    pallas_learner: Union[bool, str] = False
     # subtracted from the step reward when the episode terminates (BG<70 or
     # BG>350).  With auto-reset, termination respawns the patient at a
     # healthy BG, so under dense negative rewards a policy can "farm" the
@@ -312,8 +296,7 @@ def _gae(cfg: PPOConfig, traj: Transition, last_value: jnp.ndarray):
     adv_{t+1}`` is a linear first-order recurrence, so it runs as a
     parallel ``associative_scan`` over the time axis — log2(T) rounds of
     full [T, B] elementwise work instead of T sequential [B]-sized kernel
-    launches (the sequential scan was launch-bound: 4.9 ms for T=64,
-    B=8192 on v5e; this form is <1 ms)."""
+    launches."""
     nonterm = 1.0 - traj.done.astype(traj.value.dtype)
     v_next = jnp.concatenate([traj.value[1:], last_value[None]], axis=0)
     delta = traj.reward + cfg.gamma * v_next * nonterm - traj.value
@@ -386,146 +369,6 @@ def _replace_adam_state(opt_state, new):
     return opt_state
 
 
-def _epoch_kernel_update(
-    cfg: PPOConfig, params, opt_state, packed, adv_bsum, adv_bsq,
-    n_blocks, bs, mb_size, key, interpret,
-):
-    """cfg.pallas_learner == 'epoch': the whole learner in one kernel
-    (ops/pallas_ppo_learner.ppo_epoch_update), with full
-    make_optimizer-state interop.  Same key chain as the XLA epoch scan."""
-    import dataclasses as _dc
-
-    from jax.flatten_util import ravel_pytree
-
-    from simglucose_tpu.ops.pallas_ppo_learner import (
-        OBS_DIM as OBS_DIM_,
-        ppo_epoch_update,
-    )
-
-    if n_blocks % cfg.minibatches:
-        raise ValueError(
-            f"pallas_learner='epoch' needs the shuffle-block count "
-            f"({n_blocks}) divisible by minibatches ({cfg.minibatches}) — "
-            "use the 'step' mode or a batch where T*B/shuffle_block "
-            "divides evenly"
-        )
-    bpm = n_blocks // cfg.minibatches
-    perms, stats = [], []
-    for _ in range(cfg.epochs):
-        key, k_perm = jax.random.split(key)
-        p = jax.random.permutation(k_perm, n_blocks)
-        perms.append(p)
-        s1 = adv_bsum[p].reshape(cfg.minibatches, bpm).sum(axis=1)
-        s2 = adv_bsq[p].reshape(cfg.minibatches, bpm).sum(axis=1)
-        mean = s1 / mb_size
-        std = jnp.sqrt(jnp.maximum(s2 / mb_size - mean * mean, 0.0))
-        stats.append(jnp.stack([mean, 1.0 / (std + 1e-8)], axis=1))
-    perm_all = jnp.concatenate(perms)
-    stats = jnp.concatenate(stats, axis=0)  # [E*MB, 2]
-
-    adam = _find_adam_state(opt_state)
-    _, unravel = ravel_pytree(params)
-    mu_t = unravel(adam.mu)
-    nu_t = unravel(adam.nu)
-
-    H = params.w1.shape[1]
-    f32 = jnp.float32
-
-    def lay(p):  # PolicyParams -> the kernel's 6 weight-layout arrays
-        return (
-            jnp.pad(p.w1.astype(f32), ((0, 1), (0, 0))).T,  # [H, 8]
-            p.b1.astype(f32).reshape(H, 1),
-            p.w2.astype(f32).T,
-            p.b2.astype(f32).reshape(H, 1),
-            jnp.concatenate([p.w_mu, p.w_v], axis=1).astype(f32).T,  # [2,H]
-            jnp.concatenate([p.b_mu, p.b_v]).astype(f32).reshape(2, 1),
-        )
-
-    ls = jnp.stack(
-        [params.log_std[0], mu_t.log_std[0], nu_t.log_std[0]]
-    ).astype(f32)
-    w_out, m_out, v_out, ls_out, aux = ppo_epoch_update(
-        packed,
-        perm_all,
-        bs,
-        bpm,
-        stats,
-        lay(params),
-        lay(mu_t),
-        lay(nu_t),
-        ls,
-        mb_rows=mb_size,
-        lr=cfg.lr,
-        max_grad_norm=cfg.max_grad_norm,
-        ent_coef=cfg.ent_coef,
-        adam_count=adam.count,
-        act=params.act,
-        clip_eps=cfg.clip_eps,
-        vf_coef=cfg.vf_coef,
-        compute_dtype=jnp.bfloat16 if cfg.learner_bf16 else jnp.float32,
-        interpret=interpret,
-    )
-
-    def unlay(tmpl, arrs, log_std_val):
-        return _dc.replace(
-            tmpl,
-            w1=arrs[0].T[:OBS_DIM_],
-            b1=arrs[1][:, 0],
-            w2=arrs[2].T,
-            b2=arrs[3][:, 0],
-            w_mu=arrs[4].T[:, 0:1],
-            w_v=arrs[4].T[:, 1:2],
-            b_mu=arrs[5][0:1, 0],
-            b_v=arrs[5][1:2, 0],
-            log_std=log_std_val.reshape(1),
-        )
-
-    new_params = unlay(params, w_out, ls_out[0])
-    new_mu = unlay(params, m_out, ls_out[1])
-    new_nu = unlay(params, v_out, ls_out[2])
-    new_adam = optax.ScaleByAdamState(
-        count=adam.count + cfg.epochs * cfg.minibatches,
-        mu=ravel_pytree(new_mu)[0],
-        nu=ravel_pytree(new_nu)[0],
-    )
-    new_opt_state = _replace_adam_state(opt_state, new_adam)
-    aux3 = (
-        aux[:, 0].reshape(cfg.epochs, cfg.minibatches),
-        aux[:, 1].reshape(cfg.epochs, cfg.minibatches),
-        aux[:, 2].reshape(cfg.epochs, cfg.minibatches),
-    )
-    return new_params, new_opt_state, key, aux3
-
-
-def _gradout_to_grads(cfg: PPOConfig, params, out, mb_size):
-    """PPOGradOut (the fused grad-step kernel's sums) -> (PolicyParams-
-    shaped grads with the entropy term folded into log_std, aux loss
-    triple).  Shared by the 12-row single-buffer learner path and the
-    two-buffer kernel-prep path."""
-    import dataclasses as _dc
-    import math as _math
-
-    ent_const = 0.5 * _math.log(2 * _math.pi * _math.e)
-    grads = _dc.replace(
-        params,
-        w1=out.dw1,
-        b1=out.db1,
-        w2=out.dw2,
-        b2=out.db2,
-        w_mu=out.dw_head[:, 0:1],
-        b_mu=out.db_head[0:1],
-        w_v=out.dw_head[:, 1:2],
-        b_v=out.db_head[1:2],
-        log_std=(out.dlog_std - cfg.ent_coef).reshape(1),
-    )
-    aux = (
-        out.pg_sum / mb_size,
-        out.v_sum / mb_size,
-        params.log_std[0] + ent_const,
-    )
-    return grads, aux
-
-
 def _shuffle_blocking(cfg: PPOConfig, N: int):
     """(block_rows, n_blocks, mb_size): the block-granular shuffle layout
     for an N-row buffer (see PPOConfig.shuffle_block) — one definition for
@@ -539,205 +382,6 @@ def _shuffle_blocking(cfg: PPOConfig, N: int):
     return bs, N // bs, mb_size
 
 
-def _update_packed(
-    cfg: PPOConfig,
-    opt,
-    params: PolicyParams,
-    opt_state,
-    main_fm: jnp.ndarray,  # [10, N] the rollout kernel's learner buffer
-    advret_fm: jnp.ndarray,  # [2, N] (adv, ret) from GAE
-    key: jax.Array,
-    interpret: bool = False,
-):
-    """The PPO learner over the rollout kernel's emit-mode buffers
-    (``nn_emit_learner_rows``): same epochs x minibatches x block-granular
-    shuffle as :func:`_update`, but the minibatch grad step consumes the
-    [10, N] buffer EXACTLY as the rollout kernel wrote it plus the [2, N]
-    adv/ret companion — no featurize / forward / repack stage in between
-    (ops/pallas_ppo_learner.ppo_grad_step_gather2).  Single-device
-    pallas-learner path only."""
-    from simglucose_tpu.ops.pallas_ppo_learner import ppo_grad_step_gather2
-
-    N = main_fm.shape[1]
-    bs, n_blocks, mb_size = _shuffle_blocking(cfg, N)
-    bpm = n_blocks // cfg.minibatches
-    adv_b = advret_fm[0].reshape(n_blocks, bs)
-    adv_bsum = adv_b.sum(axis=1)
-    adv_bsq = (adv_b * adv_b).sum(axis=1)
-    cdt = jnp.bfloat16 if cfg.learner_bf16 else jnp.float32
-
-    def epoch(carry, _):
-        params, opt_state, key = carry
-        key, k_perm = jax.random.split(key)
-        perm = jax.random.permutation(k_perm, n_blocks)
-
-        def minibatch(carry, i):
-            params, opt_state = carry
-            perm_mb = jax.lax.dynamic_slice_in_dim(perm, i * bpm, bpm)
-            s1 = adv_bsum[perm_mb].sum()
-            s2 = adv_bsq[perm_mb].sum()
-            mean = s1 / mb_size
-            std = jnp.sqrt(jnp.maximum(s2 / mb_size - mean * mean, 0.0))
-            out = ppo_grad_step_gather2(
-                main_fm,
-                advret_fm,
-                perm_mb,
-                bs,
-                params.w1, params.b1, params.w2, params.b2,
-                jnp.concatenate([params.w_mu, params.w_v], axis=1),
-                jnp.concatenate([params.b_mu, params.b_v]),
-                params.log_std[0],
-                mean, std,
-                act=params.act,
-                clip_eps=cfg.clip_eps,
-                vf_coef=cfg.vf_coef,
-                compute_dtype=cdt,
-                interpret=interpret,
-            )
-            grads, aux = _gradout_to_grads(cfg, params, out, mb_size)
-            updates, opt_state = opt.update(grads, opt_state, params)
-            params = optax.apply_updates(params, updates)
-            return (params, opt_state), aux
-
-        (params, opt_state), aux = jax.lax.scan(
-            minibatch, (params, opt_state), jnp.arange(cfg.minibatches)
-        )
-        return (params, opt_state, key), aux
-
-    (params, opt_state, key), aux = jax.lax.scan(
-        epoch, (params, opt_state, key), None, length=cfg.epochs
-    )
-    return params, opt_state, key, aux
-
-
-def _update_pallas_dp(
-    cfg: PPOConfig,
-    opt,
-    params: PolicyParams,
-    opt_state,
-    traj: Transition,
-    advs: jnp.ndarray,
-    rets: jnp.ndarray,
-    key: jax.Array,
-    mesh: Mesh,
-    interpret: bool = False,
-):
-    """The fused grad-step learner kernel under a DATA-PARALLEL mesh
-    (``cfg.pallas_learner`` with ``mesh``): each device runs
-    ``ppo_grad_step_gather`` over its LOCAL rows inside ``shard_map`` and
-    the gradient/statistic sums ride one ``psum`` per minibatch — the
-    sharded-PPO-learner collective contract (BASELINE config 5) with the
-    kernel learner instead of the XLA one.
-
-    Law note vs the single-device learner: the block-granular shuffle
-    permutes each device's LOCAL blocks (same replicated key -> same
-    permutation indices on every device), so a minibatch is the union of
-    per-device block draws rather than one global draw.  Advantage
-    mean/std and the loss means are computed over the GLOBAL minibatch
-    via psum, and every device applies the identical optimizer update —
-    post-update params are bit-identical across hosts
-    (tests/test_multihost_multiprocess.py)."""
-    import dataclasses as _dc
-
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    from simglucose_tpu.ops.pallas_ppo_learner import (
-        pack_minibatch_rows,
-        ppo_grad_step_gather,
-    )
-
-    axis = "dp"
-    ndev = mesh.shape[axis]
-    T, B = traj.reward.shape
-    Bl = B // ndev
-    Nl = T * Bl
-    obs_dim = traj.obs.shape[-1]
-    bs, n_blocks, mb_size_l = _shuffle_blocking(cfg, Nl)
-    bpm = n_blocks // cfg.minibatches
-    mb_global = mb_size_l * ndev
-    cdt = jnp.bfloat16 if cfg.learner_bf16 else jnp.float32
-
-    def local_update(params, opt_state, key, obs, raw, logp, advs, rets):
-        # local shapes: [T, Bl, ...]; params/opt_state/key replicated
-        packed = pack_minibatch_rows(
-            obs.reshape(Nl, obs_dim),
-            raw.reshape(Nl),
-            logp.reshape(Nl),
-            advs.reshape(Nl),
-            rets.reshape(Nl),
-        )
-        adv_b = advs.reshape(n_blocks, bs)
-        adv_bsum = adv_b.sum(axis=1)
-        adv_bsq = (adv_b * adv_b).sum(axis=1)
-
-        def epoch(carry, _):
-            params, opt_state, key = carry
-            key, k_perm = jax.random.split(key)
-            perm = jax.random.permutation(k_perm, n_blocks)
-
-            def minibatch(carry, i):
-                params, opt_state = carry
-                perm_mb = jax.lax.dynamic_slice_in_dim(perm, i * bpm, bpm)
-                # GLOBAL minibatch advantage stats: one psum of the
-                # local block sums
-                s1 = jax.lax.psum(adv_bsum[perm_mb].sum(), axis)
-                s2 = jax.lax.psum(adv_bsq[perm_mb].sum(), axis)
-                mean = s1 / mb_global
-                std = jnp.sqrt(
-                    jnp.maximum(s2 / mb_global - mean * mean, 0.0)
-                )
-                out = ppo_grad_step_gather(
-                    packed,
-                    perm_mb,
-                    bs,
-                    params.w1, params.b1, params.w2, params.b2,
-                    jnp.concatenate([params.w_mu, params.w_v], axis=1),
-                    jnp.concatenate([params.b_mu, params.b_v]),
-                    params.log_std[0],
-                    mean, std,
-                    act=params.act,
-                    clip_eps=cfg.clip_eps,
-                    vf_coef=cfg.vf_coef,
-                    compute_dtype=cdt,
-                    interpret=interpret,
-                    # the kernel's 1/N loss scaling uses the GLOBAL row
-                    # count so psum of per-device grads IS the global mean
-                    loss_rows=mb_global,
-                )
-                out = jax.tree.map(lambda g: jax.lax.psum(g, axis), out)
-                grads, aux = _gradout_to_grads(cfg, params, out, mb_global)
-                updates, opt_state = opt.update(grads, opt_state, params)
-                params = optax.apply_updates(params, updates)
-                return (params, opt_state), aux
-
-            (params, opt_state), aux = jax.lax.scan(
-                minibatch, (params, opt_state), jnp.arange(cfg.minibatches)
-            )
-            return (params, opt_state, key), aux
-
-        (params, opt_state, key), aux = jax.lax.scan(
-            epoch, (params, opt_state, key), None, length=cfg.epochs
-        )
-        return params, opt_state, key, aux
-
-    rep = P()
-    shard_tb = P(None, axis)
-    shard_obs = P(None, axis, None)
-    fn = shard_map(
-        local_update,
-        mesh=mesh,
-        in_specs=(rep, rep, rep, shard_obs, shard_tb, shard_tb, shard_tb,
-                  shard_tb),
-        out_specs=(rep, rep, rep, rep),
-        check_vma=False,
-    )
-    return fn(
-        params, opt_state, key,
-        traj.obs, traj.raw_action, traj.logp, advs, rets,
-    )
-
-
 def _update(
     cfg: PPOConfig,
     opt,
@@ -748,132 +392,51 @@ def _update(
     rets: jnp.ndarray,
     key: jax.Array,
     mesh: Optional[Mesh],
-    interpret: bool = False,
 ):
     """The PPO learner: epochs x minibatches of clipped-surrogate updates
     over a [T, B] rollout.  Shared by the XLA-rollout trainer
     (:func:`make_train_step`) and the pallas-fused trainer (rl/fused.py).
 
-    Minibatches are drawn by BLOCK-granular shuffling of one packed buffer:
-    a full random permutation of T*B rows costs a per-row gather — measured
-    46 ms of a 73 ms iteration on v5e (random row gathers are scalar-core
-    driven) — while permuting contiguous blocks is a DMA-friendly copy
-    (~1 ms) that still mixes time steps and patients across minibatches.
-
-    With ``cfg.pallas_learner`` (and no mesh) the packed buffer is
-    FEATURE-MAJOR and each grad step runs as one fused pallas kernel
-    (ops/pallas_ppo_learner.py); the shuffle, adam, and scan scaffolding
-    are identical."""
+    Minibatches are drawn by BLOCK-granular shuffling of one packed buffer
+    (see PPOConfig.shuffle_block): permuting contiguous blocks of rows is a
+    block copy that still mixes time steps and patients across
+    minibatches.  Under a mesh the batch stays sharded and GSPMD inserts
+    the gradient all-reduce."""
     T, B = traj.reward.shape
     N = T * B
     obs_dim = traj.obs.shape[-1]
-    if (
-        bool(cfg.pallas_learner)
-        and mesh is not None
-        and cfg.pallas_learner != "epoch"
-        and "dp" in mesh.axis_names
-        and ("tp" not in mesh.axis_names or mesh.shape["tp"] == 1)
-        and B % mesh.shape["dp"] == 0
-        # pallas only lowers on TPU (or under interpret, which only the
-        # fused trainer threads through) — callers without interpret
-        # plumbing (make_train_step) keep the round-4 XLA-learner
-        # fallback on CPU/gloo meshes instead of failing to lower
-        and (interpret or jax.default_backend() == "tpu")
-    ):
-        # the kernel learner under a data-parallel mesh: per-device grad
-        # kernels + one psum per minibatch (tp-sharded weights stay on
-        # the XLA learner)
-        return _update_pallas_dp(
-            cfg, opt, params, opt_state, traj, advs, rets, key, mesh,
-            interpret,
-        )
-    use_pallas = bool(cfg.pallas_learner) and mesh is None
     bs, n_blocks, mb_size = _shuffle_blocking(cfg, N)
-
-    if use_pallas:
-        from simglucose_tpu.ops.pallas_ppo_learner import (
-            pack_minibatch_rows,
-            ppo_grad_step_gather,
-        )
-
-        packed = pack_minibatch_rows(
+    packed = jnp.concatenate(
+        [
             traj.obs.reshape(N, obs_dim),
-            traj.raw_action.reshape(N),
-            traj.logp.reshape(N),
-            advs.reshape(N),
-            rets.reshape(N),
-        )  # [FM_ROWS, N]
-        # per-shuffle-block advantage sums: each minibatch's adv mean/std
-        # (the values jnp.mean/std would produce) combine from its blocks'
-        # sums — a [blocks_per_mb] gather instead of a [mb] reduction
-        adv_b = advs.reshape(n_blocks, bs)
-        adv_bsum = adv_b.sum(axis=1)
-        adv_bsq = (adv_b * adv_b).sum(axis=1)
-        bpm = n_blocks // cfg.minibatches
-        if cfg.pallas_learner == "epoch":
-            return _epoch_kernel_update(
-                cfg, params, opt_state, packed, adv_bsum, adv_bsq,
-                n_blocks, bs, mb_size, key, interpret,
-            )
-        cdt = jnp.bfloat16 if cfg.learner_bf16 else jnp.float32
-    else:
-        packed = jnp.concatenate(
-            [
-                traj.obs.reshape(N, obs_dim),
-                traj.raw_action.reshape(N, 1),
-                traj.logp.reshape(N, 1),
-                advs.reshape(N, 1),
-                rets.reshape(N, 1),
-            ],
-            axis=1,
-        )
+            traj.raw_action.reshape(N, 1),
+            traj.logp.reshape(N, 1),
+            advs.reshape(N, 1),
+            rets.reshape(N, 1),
+        ],
+        axis=1,
+    )
 
     def epoch(carry, _):
         params, opt_state, key = carry
         key, k_perm = jax.random.split(key)
         perm = jax.random.permutation(k_perm, n_blocks)
-        if not use_pallas:
-            shuffled = packed.reshape(n_blocks, bs, obs_dim + 4)[perm]
-            shuffled = shuffled.reshape(N, obs_dim + 4)
+        shuffled = packed.reshape(n_blocks, bs, obs_dim + 4)[perm]
+        shuffled = shuffled.reshape(N, obs_dim + 4)
 
         def minibatch(carry, i):
             params, opt_state = carry
-            if use_pallas:
-                perm_mb = jax.lax.dynamic_slice_in_dim(perm, i * bpm, bpm)
-                s1 = adv_bsum[perm_mb].sum()
-                s2 = adv_bsq[perm_mb].sum()
-                mean = s1 / mb_size
-                std = jnp.sqrt(jnp.maximum(s2 / mb_size - mean * mean, 0.0))
-                out = ppo_grad_step_gather(
-                    packed,
-                    perm_mb,
-                    bs,
-                    params.w1, params.b1, params.w2, params.b2,
-                    jnp.concatenate([params.w_mu, params.w_v], axis=1),
-                    jnp.concatenate([params.b_mu, params.b_v]),
-                    params.log_std[0],
-                    mean, std,
-                    act=params.act,
-                    clip_eps=cfg.clip_eps,
-                    vf_coef=cfg.vf_coef,
-                    compute_dtype=cdt,
-                    interpret=interpret,
-                )
-                grads, aux = _gradout_to_grads(cfg, params, out, mb_size)
-            else:
-                rows = jax.lax.dynamic_slice_in_dim(
-                    shuffled, i * mb_size, mb_size
-                )
-                mb = (
-                    rows[:, :obs_dim],
-                    rows[:, obs_dim],
-                    rows[:, obs_dim + 1],
-                    rows[:, obs_dim + 2],
-                    rows[:, obs_dim + 3],
-                )
-                grads, aux = jax.grad(
-                    lambda p: _ppo_loss(cfg, p, mb, mesh), has_aux=True
-                )(params)
+            rows = jax.lax.dynamic_slice_in_dim(shuffled, i * mb_size, mb_size)
+            mb = (
+                rows[:, :obs_dim],
+                rows[:, obs_dim],
+                rows[:, obs_dim + 1],
+                rows[:, obs_dim + 2],
+                rows[:, obs_dim + 3],
+            )
+            grads, aux = jax.grad(
+                lambda p: _ppo_loss(cfg, p, mb, mesh), has_aux=True
+            )(params)
             updates, opt_state = opt.update(grads, opt_state, params)
             params = optax.apply_updates(params, updates)
             return (params, opt_state), aux

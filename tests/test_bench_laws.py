@@ -1,10 +1,13 @@
-"""The bench's law-assertion gate: a kernel regression that clamps BG,
-drops meals, or zeroes the noise must FAIL bench.py instead of posting a
+"""The law-assertion gate bench.py and chip_smoke.py share
+(simglucose_tpu/analysis/laws.py): a kernel regression that clamps BG,
+drops meals, or zeroes the noise must FAIL the run instead of posting a
 fast wrong headline (the distributional invariants cross-validated in
 BASELINE.md; reference laws sensor/noise_gen.py:15-69,
 scenario_gen.py:33-60)."""
 import numpy as np
 import pytest
+
+from simglucose_tpu.analysis.laws import PID_BANDS, check_bands, law_stats
 
 
 def _good_stats():
@@ -18,9 +21,7 @@ def _good_stats():
 
 
 def test_check_laws_accepts_reference_stats():
-    import bench
-
-    bench._check_laws(_good_stats())
+    check_bands(_good_stats(), PID_BANDS)
 
 
 @pytest.mark.parametrize(
@@ -35,18 +36,14 @@ def test_check_laws_accepts_reference_stats():
     ],
 )
 def test_check_laws_rejects_violations(key, bad):
-    import bench
-
     stats = _good_stats()
     stats[key] = bad
     with pytest.raises(AssertionError, match="law violation"):
-        bench._check_laws(stats)
+        check_bands(stats, PID_BANDS)
 
 
 def test_law_stats_computation():
-    """_law_stats computes the right quantities from a traj dict."""
-    import bench
-
+    """law_stats computes the right quantities from a traj dict."""
     T, B = 16, 8
     rng = np.random.RandomState(0)
     bg = 200.0 + rng.standard_normal((T, B)).astype(np.float32)
@@ -57,7 +54,7 @@ def test_law_stats_computation():
         "done": np.zeros((T, B), bool),
         "CHO": np.full((T, B), 220.0 / 1440.0, np.float32),
     }
-    stats = {k: float(v) for k, v in bench._law_stats(traj, 3).items()}
+    stats = law_stats(traj, 3)
     assert abs(stats["bg_mean"] - 200.0) < 1.0
     assert abs(stats["resid_std"] - 11.5) < 2.0
     assert stats["done_rate"] == 0.0

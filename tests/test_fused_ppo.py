@@ -1,7 +1,8 @@
 """Pallas-fused PPO actor: the 'nn' kernel controller must reproduce the
 XLA policy-driven env rollout exactly (deterministic config), and the fused
 train step must run end-to-end with persistent episode state.  Runs in
-pallas interpret mode on CPU (the real kernel compiles on TPU)."""
+pallas interpret mode on CPU (the compiled kernel runs on a GPU,
+tests/test_gpu.py)."""
 from functools import partial
 
 import jax
@@ -33,7 +34,7 @@ def _policy(key=0):
 
 def test_nn_controller_matches_xla_policy_rollout():
     """Deterministic config (no noise / static meals / no resets): the
-    kernel's in-VMEM MLP policy (MXU matmuls, packed weights) must drive the
+    kernel's in-kernel MLP policy (packed weights) must drive the
     env to the SAME trajectory as policy_apply + the XLA env path, and the
     kernel's raw-action / observation outputs must reconstruct exactly."""
     names = cohort_names(B)
@@ -42,15 +43,13 @@ def test_nn_controller_matches_xla_policy_rollout():
     packed = pack_params(params.patient, basal_rate(params.patient))
     policy = _policy()
 
-    # interpret-mode cost is dominated by tracing the unrolled t_chunk
-    # body: keep T small but >= 2 chunks so chunk-boundary state carry is
-    # still covered
+    # a few steps keep the interpret-mode run short
     T = 4
     meal_times = (3, 10)
     meal_amounts = (30.0, 25.0)
     scale = 0.2
     pcfg = PallasRolloutConfig(
-        n_steps=T, block_rows=1, t_chunk=2, deterministic=True,
+        n_steps=T, deterministic=True,
         controller="nn", nn_hidden=H, nn_action_scale=scale,
         det_meal_times=meal_times, det_meal_amounts=meal_amounts,
     )
@@ -119,7 +118,7 @@ def test_nn_controller_matches_xla_policy_rollout():
     # atol covers the trend feature: (cgm - cgm_prev) is a difference of two
     # near-equal f32 values that themselves agree only to ~1e-5 relative
     np.testing.assert_allclose(obs_p, np.asarray(obs_e), rtol=1e-5, atol=1e-5)
-    # deterministic mode: raw == mu — the in-kernel MLP (MXU, packed
+    # deterministic mode: raw == mu — the in-kernel MLP (packed
     # weights) agrees with policy_apply on the same observations
     np.testing.assert_allclose(
         np.asarray(traj_p["raw"]), np.asarray(mu_e), rtol=1e-4, atol=1e-6
@@ -165,7 +164,6 @@ def test_fused_train_step_runs_and_carries_state():
     )
     step = make_fused_train_step(
         cfg, B, hidden=H, interpret=True,
-        pallas_overrides=dict(block_rows=1, t_chunk=2),
     )
     ts1, m1 = step(packed, ts)
     for k, v in m1.items():
@@ -195,14 +193,14 @@ def test_pack_policy_weights_rejects_wrong_activation():
     run as a different network."""
     import pytest
 
-    tanh_policy = init_policy(jax.random.PRNGKey(0), hidden=8)  # act='tanh'
+    tanh_policy = init_policy(jax.random.PRNGKey(0), hidden=16)  # act='tanh'
     with pytest.raises(ValueError, match="relu trunk"):
         pack_policy_weights(tanh_policy)
     # and the activation survives a checkpoint round-trip (static metadata
     # travels in the tree structure)
     from simglucose_tpu.utils.checkpoint import restore_state, save_state
 
-    relu_policy = init_policy(jax.random.PRNGKey(0), hidden=8, act="relu")
+    relu_policy = init_policy(jax.random.PRNGKey(0), hidden=16, act="relu")
     path = "/tmp/test_policy_act.npz"
     save_state(path, relu_policy)
     restored = restore_state(path, like=relu_policy)
@@ -220,15 +218,14 @@ def test_fused_train_loop_scans_iterations():
     _, params = make_env(names, batch=True, dtype=np.float32)
     packed = pack_params(params.patient, basal_rate(params.patient))
     policy = init_policy(
-        jax.random.PRNGKey(3), hidden=8, init_mu_bias=-1.0, act="relu"
+        jax.random.PRNGKey(3), hidden=16, init_mu_bias=-1.0, act="relu"
     )
     cfg = PPOConfig(rollout_steps=2, epochs=1, minibatches=2)
     ts = init_fused_state(
         policy, make_optimizer(cfg).init(policy), B, jax.random.PRNGKey(0)
     )
     loop = make_fused_train_loop(
-        cfg, B, 2, hidden=8, interpret=True,
-        pallas_overrides=dict(block_rows=1, t_chunk=1),
+        cfg, B, 2, hidden=16, interpret=True,
     )
     ts1, m = loop(packed, ts)
     assert m["reward_mean"].shape == (2,)
@@ -249,15 +246,14 @@ def test_fused_continuing_mode():
     _, params = make_env(names, batch=True, dtype=np.float32)
     packed = pack_params(params.patient, basal_rate(params.patient))
     policy = init_policy(
-        jax.random.PRNGKey(3), hidden=8, init_mu_bias=-1.0, act="relu"
+        jax.random.PRNGKey(3), hidden=16, init_mu_bias=-1.0, act="relu"
     )
     cfg = PPOConfig(rollout_steps=2, epochs=1, minibatches=2)
     ts = init_fused_state(
         policy, make_optimizer(cfg).init(policy), B, jax.random.PRNGKey(0)
     )
     step = make_fused_train_step(
-        cfg, B, hidden=8, interpret=True, continuing=True,
-        pallas_overrides=dict(block_rows=1, t_chunk=1),
+        cfg, B, hidden=16, interpret=True, continuing=True,
     )
     ts1, m = step(packed, ts)
     assert np.isfinite(float(m["reward_mean"]))
@@ -278,7 +274,7 @@ def test_neg_risk_reward_kind():
     packed = pack_params(params.patient, basal_rate(params.patient))
     T = 4
     pcfg = PallasRolloutConfig(
-        n_steps=T, block_rows=1, t_chunk=2, deterministic=True,
+        n_steps=T, deterministic=True,
         controller="pid", reward_kind="neg_risk",
     )
     traj = make_pallas_rollout(pcfg, B, interpret=True)(packed, 0)
@@ -319,7 +315,6 @@ def test_fused_train_step_sharded_over_mesh():
     )
     step = make_fused_train_step(
         cfg, Bs, hidden=H, interpret=True, mesh=mesh,
-        pallas_overrides=dict(block_rows=1, t_chunk=2),
     )
     with mesh:
         ts1, m = step(packed, ts)
@@ -335,7 +330,7 @@ def test_fused_train_step_sharded_over_mesh():
 
 
 def test_nn_controller_exogenous_noise_matches_env_exactly():
-    """NONZERO noise through the 'nn' kernel (round-3 VERDICT item 5): the
+    """NONZERO noise through the 'nn' kernel: the
     fused actor consumes the same MT19937-bit-exact reference CGM noise
     planes the env path does (deterministic policy-mean actions, static
     meals) and must reproduce the XLA policy rollout noise-for-noise — the
@@ -357,10 +352,10 @@ def test_nn_controller_exogenous_noise_matches_env_exactly():
         np.float32
     )
     rows = B // 128
-    bc = lambda a: np.broadcast_to(a[:, None, None], (len(a), rows, 128))
+    bc = lambda a: np.broadcast_to(a[:, None], (len(a), B))
 
     pcfg = PallasRolloutConfig(
-        n_steps=T, block_rows=1, t_chunk=2, deterministic=True,
+        n_steps=T, deterministic=True,
         exogenous_noise=True, autoreset=False,
         controller="nn", nn_hidden=H, nn_action_scale=scale,
         det_meal_times=meal_times, det_meal_amounts=meal_amounts,
@@ -417,99 +412,6 @@ def test_nn_controller_exogenous_noise_matches_env_exactly():
     )
 
 
-def test_nn_batched_mlp_matches_per_row():
-    """nn_batched_mlp (one [H,7]x[7,R,128] dot_general over all sublane
-    rows) must produce the identical trajectory to the per-row MXU loop."""
-    import dataclasses
-
-    Bb = 256  # R=2 rows so batching is nontrivial
-    names = cohort_names(Bb)
-    _, params = make_env(names, batch=True, dtype=np.float32)
-    packed = pack_params(params.patient, basal_rate(params.patient))
-    policy = _policy()
-    w = pack_policy_weights(policy)
-    base = PallasRolloutConfig(
-        n_steps=1, block_rows=2, t_chunk=1, deterministic=True,
-        controller="nn", nn_hidden=H,
-        det_meal_times=(3,), det_meal_amounts=(30.0,),
-    )
-    t1 = make_pallas_rollout(base, Bb, interpret=True)(packed, 0, weights=w)
-    t2 = make_pallas_rollout(
-        dataclasses.replace(base, nn_batched_mlp=True), Bb, interpret=True
-    )(packed, 0, weights=w)
-    for k in ("raw", "insulin", "BG", "CGM"):
-        np.testing.assert_allclose(
-            np.asarray(t1[k]), np.asarray(t2[k]), rtol=1e-6, atol=1e-7
-        )
-
-
-def test_kernel_prep_matches_plane_prep():
-    """VERDICT r4 item 1: the kernel-prep pipeline (learner rows — obs
-    features, value, raw, logp — emitted DIRECTLY by the rollout kernel,
-    two-buffer grad-step kernel, in-kernel bootstrap value) must produce
-    the same training iteration as the round-4 plane-prep pipeline
-    (observation planes + XLA featurize/forwards/pack).  Same seed ->
-    identical rollouts (the value head adds no RNG draws), same shuffle key
-    chain -> same minibatches; params match to float-accumulation
-    tolerance."""
-    import dataclasses as _dc
-
-    from simglucose_tpu.rl.fused import (
-        init_fused_state,
-        make_fused_train_step,
-    )
-    from simglucose_tpu.rl.ppo import PPOConfig, make_optimizer
-
-    names = cohort_names(B)
-    _, params = make_env(names, batch=True, dtype=np.float32)
-    packed = pack_params(params.patient, basal_rate(params.patient))
-    policy = _policy(1)
-    cfg = PPOConfig(
-        rollout_steps=4, epochs=1, minibatches=2, pallas_learner="step"
-    )
-    over = dict(block_rows=1, t_chunk=2)
-    ts0 = init_fused_state(
-        policy, make_optimizer(cfg).init(policy), B, jax.random.PRNGKey(0)
-    )
-
-    step_plane = make_fused_train_step(
-        cfg, B, hidden=H, interpret=True, pallas_overrides=over,
-        kernel_prep=False,
-    )
-    step_prep = make_fused_train_step(
-        cfg, B, hidden=H, interpret=True, pallas_overrides=over,
-        kernel_prep=True,
-    )
-    ts_a, m_a = step_plane(packed, ts0)
-    ts_b, m_b = step_prep(packed, ts0)
-
-    # identical rollouts -> identical trajectories/metrics
-    np.testing.assert_allclose(
-        float(m_a["reward_mean"]), float(m_b["reward_mean"]), rtol=1e-5
-    )
-    np.testing.assert_allclose(
-        float(m_a["done_frac"]), float(m_b["done_frac"]), rtol=0, atol=0
-    )
-    # same updates (in-kernel logp/value vs the XLA recompute differ by
-    # float-op ordering only)
-    for a, b in zip(jax.tree.leaves(ts_a.params), jax.tree.leaves(ts_b.params)):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=5e-3, atol=5e-5
-        )
-    # the simulator state carries identically (bit-exact: same draws)
-    np.testing.assert_array_equal(
-        np.asarray(ts_a.state_f), np.asarray(ts_b.state_f)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(ts_a.state_i), np.asarray(ts_b.state_i)
-    )
-    # loss metrics agree
-    for k in ("pg_loss", "v_loss", "entropy"):
-        np.testing.assert_allclose(
-            float(m_a[k]), float(m_b[k]), rtol=1e-2, atol=1e-4
-        )
-
-
 def test_nn_residual_bb_decoder_matches_xla():
     """decoder='residual_bb' (the policy multiplicatively modulates
     basal-bolus therapy — PolicyParams.decoder docs): the kernel's
@@ -536,7 +438,7 @@ def test_nn_residual_bb_decoder_matches_xla():
     meal_amounts = (45.0,)
     scale = 1.1
     pcfg = PallasRolloutConfig(
-        n_steps=T, block_rows=1, t_chunk=2, deterministic=True,
+        n_steps=T, deterministic=True,
         controller="nn", nn_hidden=H, nn_action_scale=scale,
         nn_decoder="residual_bb",
         det_meal_times=meal_times, det_meal_amounts=meal_amounts,
@@ -609,3 +511,36 @@ def test_nn_residual_bb_decoder_matches_xla():
     # carries bolus-sized insulin even at the modulation floor exp(-1.1)
     ins = np.asarray(traj_p["insulin"])
     assert (ins[2] > 3.0 * np.asarray(patient_basal)).mean() > 0.9
+
+
+def test_fused_mesh_state_compiles_once():
+    """init_fused_state places every leaf (state planes over the batch
+    axis, params/opt state/init flag/key replicated) exactly as the mesh
+    train step returns it, so the second call reuses the first call's
+    compilation instead of recompiling for new input shardings."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from simglucose_tpu.parallel.sharding import make_mesh
+    from simglucose_tpu.rl.fused import init_fused_state, make_fused_train_loop
+    from simglucose_tpu.rl.ppo import PPOConfig, make_optimizer
+
+    mesh = make_mesh(dp=8, tp=1)
+    Bs = 8 * 16
+    _, params = make_env(cohort_names(Bs), batch=True, dtype=np.float32)
+    packed = jax.device_put(
+        pack_params(params.patient, basal_rate(params.patient)),
+        NamedSharding(mesh, P(None, "dp")),
+    )
+    policy = _policy(4)
+    cfg = PPOConfig(rollout_steps=2, epochs=1, minibatches=2)
+    ts = init_fused_state(
+        policy, make_optimizer(cfg).init(policy), Bs, jax.random.PRNGKey(0),
+        mesh=mesh,
+    )
+    loop = jax.jit(make_fused_train_loop(cfg, Bs, 1, hidden=H,
+                                         interpret=True, mesh=mesh))
+    with mesh:
+        for _ in range(2):
+            ts, m = loop(packed, ts)
+    assert np.isfinite(np.asarray(m["reward_mean"])).all()
+    assert loop._cache_size() == 1

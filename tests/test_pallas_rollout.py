@@ -1,6 +1,7 @@
 """Pallas fast-path rollout: exact parity (deterministic config) vs the XLA
 env path, and law-level statistics for the stochastic config.  Runs in
-pallas interpret mode on CPU (the real kernel compiles on TPU)."""
+pallas interpret mode on CPU (the compiled kernel runs on a GPU,
+tests/test_gpu.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -45,7 +46,7 @@ def test_deterministic_matches_env_exactly():
 
     T = 6
     pcfg = PallasRolloutConfig(
-        n_steps=T, block_rows=1, t_chunk=3, deterministic=True,
+        n_steps=T, deterministic=True,
         controller="pid",
     )
     run = make_pallas_rollout(pcfg, B, interpret=True)
@@ -106,7 +107,7 @@ def test_deterministic_bb_with_meals_matches_env_exactly():
     meal_times = (3, 10)  # absolute episode minutes
     meal_amounts = (30.0, 25.0)  # grams (30 g -> 6 min of EAT_RATE eating)
     pcfg = PallasRolloutConfig(
-        n_steps=T, block_rows=1, t_chunk=3, deterministic=True,
+        n_steps=T, deterministic=True,
         controller="bb",
         det_meal_times=meal_times, det_meal_amounts=meal_amounts,
     )
@@ -163,7 +164,7 @@ def test_deterministic_other_sensors_match_env(sensor):
 
     T = 4
     pcfg = config_for_sensor(
-        sensor, n_steps=T, block_rows=1, t_chunk=2, deterministic=True,
+        sensor, n_steps=T, deterministic=True,
         controller="pid",
     )
     run = make_pallas_rollout(pcfg, B, interpret=True)
@@ -211,7 +212,7 @@ def test_sharded_kernel_matches_unsharded():
 
     T = 4
     pcfg = PallasRolloutConfig(
-        n_steps=T, block_rows=1, t_chunk=2, deterministic=True,
+        n_steps=T, deterministic=True,
         controller="pid",
     )
     ref = make_pallas_rollout(pcfg, B8, interpret=True)(packed, 0)
@@ -253,18 +254,15 @@ def test_sharded_exogenous_noise_matches_unsharded():
     noise = reference_cgm_noise(sensor_record("Dexcom"), 1, T + 2).astype(
         np.float32
     )
-    rows = B8 // 128
     rng = np.random.RandomState(7)
     # per-lane noise planes (not broadcast): sharding must split them
-    reset_noise = rng.standard_normal((2, rows, 128)).astype(np.float32)
-    step_noise = np.broadcast_to(
-        noise[2:, None, None], (T, rows, 128)
-    ).astype(np.float32) + rng.standard_normal((T, rows, 128)).astype(
+    reset_noise = rng.standard_normal((2, B8)).astype(np.float32)
+    step_noise = np.broadcast_to(noise[2:, None], (T, B8)).astype(
         np.float32
-    )
+    ) + rng.standard_normal((T, B8)).astype(np.float32)
 
     pcfg = PallasRolloutConfig(
-        n_steps=T, block_rows=1, t_chunk=2, deterministic=True,
+        n_steps=T, deterministic=True,
         exogenous_noise=True, autoreset=False, controller="bb",
         det_meal_times=(3,), det_meal_amounts=(30.0,),
     )
@@ -301,7 +299,7 @@ def test_sharded_wrapper_rejects_missing_inputs():
     _, packed = _packed(names)
 
     pcfg = PallasRolloutConfig(
-        n_steps=4, block_rows=1, t_chunk=2, deterministic=True,
+        n_steps=4, deterministic=True,
         exogenous_noise=True, autoreset=False,
     )
     run = make_sharded_pallas_rollout(pcfg, B8, mesh, interpret=True)
@@ -309,15 +307,15 @@ def test_sharded_wrapper_rejects_missing_inputs():
         run(packed, 0)
 
     ncfg = PallasRolloutConfig(
-        n_steps=4, block_rows=1, t_chunk=2, deterministic=True,
-        controller="nn", nn_hidden=8,
+        n_steps=4, deterministic=True,
+        controller="nn", nn_hidden=16,
     )
     nrun = make_sharded_pallas_rollout(ncfg, B8, mesh, interpret=True)
     with pytest.raises(ValueError, match="'nn' config needs weights"):
         nrun(packed, 0)
 
     with pytest.raises(ValueError, match="must divide"):
-        make_sharded_pallas_rollout(pcfg, 8 * 128 + 64, mesh, interpret=True)
+        make_sharded_pallas_rollout(pcfg, 8 * 128 + 4, mesh, interpret=True)
 
 
 def test_exogenous_noise_matches_env_exactly():
@@ -339,11 +337,10 @@ def test_exogenous_noise_matches_env_exactly():
     noise = reference_cgm_noise(sensor_record("Dexcom"), 1, T + 2).astype(
         np.float32
     )
-    rows = B // 128
-    bc = lambda a: np.broadcast_to(a[:, None, None], (len(a), rows, 128))
+    bc = lambda a: np.broadcast_to(a[:, None], (len(a), B))
 
     pcfg = PallasRolloutConfig(
-        n_steps=T, block_rows=1, t_chunk=2, deterministic=True,
+        n_steps=T, deterministic=True,
         exogenous_noise=True, autoreset=False, controller="bb",
         det_meal_times=meal_times, det_meal_amounts=meal_amounts,
     )
@@ -411,13 +408,10 @@ def test_static_scenario_stochastic_path_matches_env_exactly():
     noise = reference_cgm_noise(sensor_record("Dexcom"), 1, T + 2).astype(
         np.float32
     )
-    rows = B // 128
-    bc = lambda a: np.broadcast_to(a[:, None, None], (len(a), rows, 128))
+    bc = lambda a: np.broadcast_to(a[:, None], (len(a), B))
 
     pcfg = PallasRolloutConfig(
-        n_steps=T, block_rows=1, t_chunk=2,
-        deterministic=False, scenario_kind="static", prng="sw",
-        exogenous_noise=True, autoreset=False, random_init_bg=False,
+        n_steps=T, deterministic=False, scenario_kind="static", exogenous_noise=True, autoreset=False, random_init_bg=False,
         fixed_start_min=0, controller="bb",
         det_meal_times=meal_times, det_meal_amounts=meal_amounts,
     )
@@ -462,14 +456,12 @@ def test_static_scenario_native_noise_law():
     """scenario_kind='static' with NATIVE noise ('sw' PRNG, random init BG,
     autoreset off): meals are exact (static schedule), while the CGM-BG
     residual follows the Johnson-SU law — the configuration simulate() runs
-    custom scenarios in on TPU."""
+    custom scenarios in."""
     names = cohort_names(B)
     _, packed = _packed(names)
     T = 6
     pcfg = PallasRolloutConfig(
-        n_steps=T, block_rows=1, t_chunk=3,
-        deterministic=False, scenario_kind="static", prng="sw",
-        autoreset=False, random_init_bg=True, fixed_start_min=0,
+        n_steps=T, deterministic=False, scenario_kind="static", autoreset=False, random_init_bg=True, fixed_start_min=0,
         controller="pid",
         det_meal_times=(3, 12), det_meal_amounts=(30.0, 25.0),
     )
@@ -488,20 +480,14 @@ def test_static_scenario_native_noise_law():
 
 def test_stochastic_law():
     """Stochastic config: BG stays physiological, meals arrive at the daily
-    law's rate, CGM noise has the Johnson-SU scale.  Runs EVERYWHERE: the
-    'sw' counter-based PRNG covers CPU interpret mode (this suite); on real
-    TPUs the same test exercises the 'hw' hardware PRNG."""
+    law's rate, CGM noise has the Johnson-SU scale (interpret mode here;
+    the compiled kernel runs the same checks at B=4096 in
+    tests/test_gpu.py)."""
     names = cohort_names(B)
     _, packed = _packed(names)
-    on_tpu = jax.default_backend() == "tpu"
-    # interpret-mode cost is dominated by tracing the unrolled t_chunk body
-    # (~80s at t_chunk=2); runs themselves are seconds
-    T = 480 if on_tpu else 16
-    pcfg = PallasRolloutConfig(
-        n_steps=T, block_rows=1, t_chunk=60 if on_tpu else 2,
-        prng="hw" if on_tpu else "sw",
-    )
-    run = make_pallas_rollout(pcfg, B, interpret=not on_tpu)
+    T = 16
+    pcfg = PallasRolloutConfig(n_steps=T)
+    run = make_pallas_rollout(pcfg, B, interpret=True)
     traj = run(packed, 7)
 
     bg = np.asarray(traj["BG"])
@@ -528,29 +514,27 @@ def test_stochastic_law():
 
 def test_chunked_persistent_matches_single_call_exactly():
     """Long-horizon chunking contract (sim/engine.py _simulate_pallas): a
-    horizon run as K persistent_state chunks with ``seed + c * n_tchunks``
-    per chunk is BIT-identical to the single-call run, because the kernel
-    seeds its PRNG per (block, t-chunk) grid index and the offset seed
-    continues the grid-index stream exactly where the previous call
-    stopped.  Stochastic config (noise + random meals + random init BG +
-    random start hours) so every draw site is exercised."""
+    horizon run as K persistent_state chunks, chunk c passing
+    ``step0 = c * n_steps``, is BIT-identical to the single-call run —
+    every random draw is a function of (seed, lane, global step, site), so
+    the second call continues the streams exactly where the first stopped.
+    Stochastic config (noise + random meals + random init BG + random
+    start hours) so every draw site is exercised; the 3-step chunks start
+    the second call on an odd step, where the noise pair is redrawn."""
     names = cohort_names(B)
     _, packed = _packed(names)
-    common = dict(
-        block_rows=1, t_chunk=2, prng="sw", controller="pid",
-        autoreset=False, random_init_bg=True,
-    )
-    single = PallasRolloutConfig(n_steps=8, **common)
-    chunked = PallasRolloutConfig(n_steps=4, persistent_state=True, **common)
+    common = dict(controller="pid", autoreset=False, random_init_bg=True,
+                  regen_every=2)
+    single = PallasRolloutConfig(n_steps=6, **common)
+    chunked = PallasRolloutConfig(n_steps=3, persistent_state=True, **common)
 
     traj_s = make_pallas_rollout(single, B, interpret=True)(packed, 13)
 
     run_c = make_pallas_rollout(chunked, B, interpret=True)
-    n_tchunks = chunked.n_steps // chunked.t_chunk
     out0 = run_c(packed, 13, init=1)
     out1 = run_c(
-        packed, 13 + n_tchunks,
-        state=(out0["state_f"], out0["state_i"]), init=0,
+        packed, 13, state=(out0["state_f"], out0["state_i"]), init=0,
+        step0=chunked.n_steps,
     )
     for k in ("BG", "CGM", "CHO", "insulin", "reward", "done"):
         got = np.concatenate(
@@ -581,7 +565,7 @@ def test_bb_without_quest_fails_loudly():
         "packed params must stay NaN-free for multi-process device_put"
     )
     pcfg = PallasRolloutConfig(
-        n_steps=2, block_rows=1, t_chunk=1, deterministic=True,
+        n_steps=2, deterministic=True,
         controller="bb",
         det_meal_times=(0,), det_meal_amounts=(30.0,),
     )

@@ -90,7 +90,7 @@ def test_openloop_matches_reference_f64(name):
 
 
 def test_openloop_f32_close():
-    """float32 (the TPU fast path) stays clinically indistinguishable."""
+    """float32 (the fast-path dtype) stays clinically indistinguishable."""
     g = load_golden("openloop_adolescent_001.npz")
     params = jax.tree.map(
         lambda a: jnp.asarray(a, jnp.float32)[0],
@@ -125,7 +125,7 @@ def test_meal_state_machine():
 
 def test_vmap_batch_equals_single():
     """The reference's parallel==serial contract (test_sim_engine.py:24-86),
-    TPU analog: vmapped batch trace == per-patient trace."""
+    Here: vmapped batch trace == per-patient trace."""
     names = ["adolescent#001", "adult#005", "child#003"]
     batch = load_patient_params(names, dtype=np.float64)
     batch = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), batch)

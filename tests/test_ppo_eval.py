@@ -113,15 +113,15 @@ def test_evaluate_policy_kernel_interpret():
     from simglucose_tpu.rl.policy import init_policy
 
     policy = init_policy(
-        jax.random.PRNGKey(0), hidden=8, act="relu", init_mu_bias=-2.2
+        jax.random.PRNGKey(0), hidden=16, act="relu", init_mu_bias=-2.2
     )
     names = ["adolescent#001", "adult#003", "child#007"]
     hours = 4 * 3 / 60.0  # 4 Dexcom steps
     out1 = evaluate_policy_kernel(
-        policy, names, hours=hours, seed=5, interpret=True, shard=False, t_chunk=1
+        policy, names, hours=hours, seed=5, interpret=True, shard=False
     )
     out2 = evaluate_policy_kernel(
-        policy, names, hours=hours, seed=5, interpret=True, shard=False, t_chunk=1
+        policy, names, hours=hours, seed=5, interpret=True, shard=False
     )
     assert out1["BG"].shape == (3, 4)
     assert np.isfinite(out1["BG"]).all()
@@ -153,7 +153,7 @@ def residual_policy():
 
 
 def test_residual_checkpoint_competes_with_bb(residual_policy):
-    """VERDICT r4 item 6: the shipped residual_bb checkpoint (the policy
+    """The shipped residual_bb checkpoint (the policy
     MODULATES basal-bolus therapy — PolicyParams.decoder docs) must
     compete with the reference's canonical BB-therapy baseline
     (reference: examples/results/2017-12-31_17-46-32/performance_stats.csv
@@ -216,11 +216,11 @@ def test_evaluate_policy_kernel_residual_decoder(residual_policy):
     hours = 4 * 3 / 60.0  # 4 Dexcom steps
     out1 = evaluate_policy_kernel(
         residual_policy, names, hours=hours, seed=5, interpret=True,
-        shard=False, t_chunk=1,
+        shard=False,
     )
     out2 = evaluate_policy_kernel(
         residual_policy, names, hours=hours, seed=5, interpret=True,
-        shard=False, t_chunk=1,
+        shard=False,
     )
     assert out1["BG"].shape == (3, 4)
     assert np.isfinite(out1["BG"]).all()

@@ -40,7 +40,7 @@ def test_rollout_deterministic():
 
 
 def test_vmap_batch_equals_single_closed_loop():
-    """TPU analog of the reference's parallel==serial test
+    """Analog of the reference's parallel==serial test
     (tests/test_sim_engine.py:24-86): a vmapped cohort rollout must equal
     each patient's individual rollout exactly."""
     names = ["adolescent#002", "adult#007", "child#005"]

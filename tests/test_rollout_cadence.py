@@ -95,7 +95,7 @@ def test_cadence_resets_preserve_law():
 
 def test_cadence_second_termination_gets_fresh_candidate():
     """A lane terminating more than once within one chunk must NOT replay
-    an identical episode start (round-3 ADVICE): the chunk draws C=2
+    an identical episode start: the chunk draws C=2
     candidates and the second adoption takes the second one."""
     B, T, K = 4, 8, 8
     # bg_done_low=1e9 makes every step terminal -> every step adopts

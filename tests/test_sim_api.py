@@ -150,15 +150,16 @@ def test_interactive_ui_wizard(monkeypatch):
 
 
 def test_engine_param_validation():
-    """engine='pallas' needs the TPU hardware PRNG (these tests run on CPU)
-    and rejects configs only the general path supports; engine='auto' falls
-    back to the XLA path silently."""
+    """engine='pallas' needs a compiled kernel (a GPU) or an explicit
+    interpret=True — these tests run on CPU, so it raises — and rejects
+    configs only the general path supports; engine='auto' takes the XLA
+    path without complaint."""
     import pytest
 
     from simglucose_tpu.sim.engine import _pallas_eligible
     from simglucose_tpu.analysis.risk import risk_diff_reward
 
-    with pytest.raises(ValueError, match="backend"):
+    with pytest.raises(ValueError, match="backend 'cpu'"):
         simulate(
             sim_time=timedelta(hours=1),
             patient_names=["adolescent#001"],
@@ -179,30 +180,26 @@ def test_engine_param_validation():
             **kw,
         }
     )
-    # custom scenarios now ride the kernel's static meal schedule: a
-    # parseable MealSpec is eligible (only the backend blocks on CPU),
-    # an unparseable one is not
-    assert "backend" in ok(scenario=[(7.0, 45)])
+    # custom scenarios ride the kernel's static meal schedule: a parseable
+    # MealSpec is eligible, an unparseable one is not
+    assert ok(scenario=[(7.0, 45)]) is None
     assert "scenario" in ok(scenario=[("breakfast", 45)])
     assert "animate" in ok(animate=True)
     assert "substeps" in ok(substeps=4)
     assert "dtype" in ok(dtype=np.float64)
     # custom rewards are ELIGIBLE: the frame has no reward column and the
-    # plane is recomputed from the kernel's CGM planes (rewards_from_cgm),
-    # so only the backend blocks on CPU
-    assert "backend" in ok(reward_fun=lambda w, n: 0.0)
+    # plane is recomputed from the kernel's CGM planes (rewards_from_cgm)
+    assert ok(reward_fun=lambda w, n: 0.0) is None
     assert "controller" in ok(controller=((), lambda s, r: None))
     # the kwarg whitelist is PER controller: BB takes only 'target' (the
     # XLA path's bb_policy raises on P/I/D), so ('BB', {'P': ...}) must be
     # ineligible — NOT silently run default therapy on the pallas engine
     assert "controller" in ok(controller=("BB", dict(P=-1e-4)))
     assert "controller" in ok(controller=("PID", dict(nope=1)))
-    # valid per-controller kwargs pass the controller check (only the
-    # backend blocks on CPU)
-    assert "backend" in ok(controller=("BB", dict(target=150.0)))
-    assert "backend" in ok(controller=("PID", dict(P=-2e-4, D=-1e-3)))
-    # everything else fine -> only the backend blocks on CPU
-    assert "backend" in ok()
+    # valid per-controller kwargs are eligible
+    assert ok(controller=("BB", dict(target=150.0))) is None
+    assert ok(controller=("PID", dict(P=-2e-4, D=-1e-3))) is None
+    assert ok() is None
 
 
 def test_simulate_pallas_multidevice_interpret():
@@ -267,9 +264,9 @@ def test_simulate_pallas_custom_scenario_interpret():
 
 
 def test_engine_auto_small_cohort_falls_back_off_tpu():
-    """engine='auto' runs the XLA path on CPU (backend blocker) at any
-    cohort size — on TPU the kernel is the default for ALL eligible
-    configs, B=30 included (no B<512 heuristic)."""
+    """engine='auto' runs the XLA path on CPU at any cohort size (no
+    compiled kernel there, and auto never picks the interpreter) — on a
+    GPU the kernel is the default for ALL eligible configs."""
     df = simulate(
         sim_time=timedelta(hours=1),
         patient_names=["adolescent#001"],
@@ -362,37 +359,36 @@ def test_simulate_pallas_custom_reward_interpret():
         np.testing.assert_allclose(r[1, i], cgm[1] - cgm[2], rtol=1e-6)
 
 
-def test_engine_auto_cold_heuristic(monkeypatch):
-    """auto's measured-crossover policy: with the config otherwise eligible
-    but no kernel compiled in-process and small total work, auto falls back
-    to the XLA engine (a fresh kernel compile costs minutes vs seconds of
-    XLA cold start — BASELINE.md round-4)."""
-    from simglucose_tpu.sim import engine as eng
+def test_simulate_arrays_matches_frame():
+    """simulate_arrays is simulate() without the frame: same values, [T, B]
+    planes, the reset row apart."""
+    from simglucose_tpu.sim.engine import simulate_arrays
 
-    monkeypatch.setattr(eng, "_pallas_eligible", lambda *a, **k: None)
-    # isolate from other tests that compile kernels in this process
-    monkeypatch.setattr(eng, "_PALLAS_RUN_CACHE", {})
-    df = eng.simulate(
-        sim_time=timedelta(hours=1),
-        patient_names=["adolescent#001"],
-        controller="PID",
-        engine="auto",
-    )
-    # ran (on the XLA path — the pallas path would crash on CPU without
-    # interpret mode, so completing IS the assertion) with the reward attrs
-    assert df.attrs["reward"].shape == (20, 1)
+    kw = dict(sim_time=timedelta(minutes=30),
+              patient_names=["adolescent#001", "child#002"],
+              controller="BB", scenario_seed=3, cgm_seed=4, engine="xla")
+    arr = simulate_arrays(**kw)
+    df = simulate(**kw)
+    assert arr.engine == "xla" and arr.traj.BG.shape == (10, 2)
+    for i, name in enumerate(kw["patient_names"]):
+        sub = df.loc[name]
+        np.testing.assert_allclose(sub.BG.to_numpy()[1:], arr.traj.BG[:, i])
+        np.testing.assert_allclose(sub.BG.to_numpy()[0], arr.reset.BG[i])
+        np.testing.assert_allclose(sub.CHO.to_numpy()[1:], arr.traj.CHO[:, i])
+    np.testing.assert_allclose(df.attrs["reward"], arr.reward)
 
 
 def test_simulate_pallas_chunked_long_horizon(monkeypatch):
-    """Horizons beyond PALLAS_MAX_STEPS_PER_CALL run as persistent_state
-    chunks inside _simulate_pallas: one compiled program, state threaded
-    between calls, planes concatenated and sliced to the requested horizon
-    (VERDICT r4 item 2; bit-level chunk parity is pinned at kernel level by
-    tests/test_pallas_rollout.py).  Forced here with a tiny chunk bound so
-    n_steps=6 runs as 3 chunks of 2."""
+    """Horizons whose output planes exceed PALLAS_MAX_OUTPUT_BYTES run as
+    persistent_state chunks inside _simulate_pallas: one compiled program,
+    state threaded between calls, planes concatenated and sliced to the
+    requested horizon (bit-level chunk parity is pinned at kernel level by
+    tests/test_pallas_rollout.py).  Forced here with a tiny byte bound so
+    n_steps=6 runs as 3 chunks of 2 (2 patients padded to the 8 devices:
+    6 planes x 4 bytes x 8 lanes per step)."""
     from simglucose_tpu.sim import engine as eng
 
-    monkeypatch.setattr(eng, "PALLAS_MAX_STEPS_PER_CALL", 2)
+    monkeypatch.setattr(eng, "PALLAS_MAX_OUTPUT_BYTES", 2 * 6 * 4 * 8)
     names = ["adolescent#001", "adult#003"]
     df = eng._simulate_pallas(
         names,
@@ -417,51 +413,3 @@ def test_simulate_pallas_chunked_long_horizon(monkeypatch):
         jumps = np.abs(np.diff(bg))
         assert jumps.max() < 25.0, jumps
     assert df.attrs["reward"].shape == (6, 2)
-
-
-def test_aot_cache_paths(monkeypatch, tmp_path):
-    """The AOT executable disk cache (VERDICT r4 item 3): key paths are
-    stable per config, the existence probe feeds the auto-engine, and
-    setting SIMGLUCOSE_TPU_AOT_CACHE='' disables the cache (measured
-    effect on TPU: fresh-process simulate() 202.6 s -> 12.4 s,
-    BASELINE.md round-5)."""
-    from simglucose_tpu.sim import engine as eng
-
-    cfg_p, padded, _, n_dev, _ = eng._pallas_cfg(
-        ["adolescent#001"], "Dexcom", "Insulet", "PID", 16, 0, False,
-        datetime(2018, 1, 1), None,
-    )
-    monkeypatch.setenv("SIMGLUCOSE_TPU_AOT_CACHE", str(tmp_path))
-    p1 = eng._aot_path(cfg_p, padded, n_dev)
-    assert p1 is not None and str(tmp_path) in p1
-    # stable key for the same config, different for a different one
-    assert p1 == eng._aot_path(cfg_p, padded, n_dev)
-    cfg_q, padded_q, _, n_dev_q, _ = eng._pallas_cfg(
-        ["adolescent#001"], "GuardianRT", "Insulet", "PID", 16, 0, False,
-        datetime(2018, 1, 1), None,
-    )
-    assert eng._aot_path(cfg_q, padded_q, n_dev_q) != p1
-    assert not eng._aot_payload_exists(cfg_p, padded, n_dev)
-    open(p1, "wb").close()
-    assert eng._aot_payload_exists(cfg_p, padded, n_dev)
-    # disabled cache
-    monkeypatch.setenv("SIMGLUCOSE_TPU_AOT_CACHE", "")
-    assert eng._aot_path(cfg_p, padded, n_dev) is None
-    assert not eng._aot_payload_exists(cfg_p, padded, n_dev)
-
-
-def test_aot_cache_key_includes_kernel_source(monkeypatch, tmp_path):
-    """A kernel CODE change must invalidate AOT payloads (a stale
-    executable served for a new kernel version would silently run old
-    physics): the cache key folds in the kernel source hash."""
-    from simglucose_tpu.sim import engine as eng
-
-    monkeypatch.setenv("SIMGLUCOSE_TPU_AOT_CACHE", str(tmp_path))
-    cfg_p, padded, _, n_dev, _ = eng._pallas_cfg(
-        ["adolescent#001"], "Dexcom", "Insulet", "PID", 16, 0, False,
-        datetime(2018, 1, 1), None,
-    )
-    p1 = eng._aot_path(cfg_p, padded, n_dev)
-    monkeypatch.setattr(eng, "_KERNEL_SRC_HASH", "different-source")
-    p2 = eng._aot_path(cfg_p, padded, n_dev)
-    assert p1 != p2

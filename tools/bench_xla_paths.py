@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Measure the general XLA rollout paths on TPU: streaming vs pregen
+"""Measure the general XLA rollout paths on the GPU: streaming vs pregen
 (fixed-horizon) and autoreset scan-unroll variants.
 
 The fixed-horizon engine is simulate()'s XLA path (the reference's
@@ -13,10 +13,11 @@ import time
 import jax
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/simglucose_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
+
+from simglucose_tpu.utils.runtime import use_compile_cache  # noqa: E402
+
+use_compile_cache()
 
 from simglucose_tpu.controllers.functional import pid_controller  # noqa: E402
 from simglucose_tpu.envs.build import cohort_names, make_env  # noqa: E402
@@ -31,15 +32,13 @@ B = 4096
 T = 256
 
 
-def timeit(fn, fetch, n_calls=8):
-    fn()  # compile + warm
-    fetch()
+def timeit(fn, n_calls=8):
+    jax.block_until_ready(fn())  # compile + warm
     tic = time.perf_counter()
     for _ in range(n_calls):
         out = fn()
-    fetch(out)
-    toc = time.perf_counter()
-    return B * T * n_calls / (toc - tic)
+    jax.block_until_ready(out)
+    return B * T * n_calls / (time.perf_counter() - tic)
 
 
 def bench_fixed(pregen):
@@ -53,13 +52,7 @@ def bench_fixed(pregen):
             cfg, params, keys, ctrl0, ctrl, T, start_min=600, pregen=pregen
         )
     )
-    out = [None]
-
-    def fetch(o=None):
-        o = o if o is not None else run()
-        out[0] = float(np.asarray(o[2].reward)[0, -1])
-
-    return timeit(run, fetch)
+    return timeit(run)
 
 
 def bench_autoreset(reset_cadence=1):
@@ -74,14 +67,7 @@ def bench_autoreset(reset_cadence=1):
         cfg, ctrl, n_steps=T, donate=False, reset_cadence=reset_cadence
     )
 
-    def call():
-        return run(params, state, cs, reset_res)
-
-    def fetch(o=None):
-        o = o if o is not None else call()
-        return float(np.asarray(o[2].reward[-1])[0])
-
-    return timeit(call, fetch)
+    return timeit(lambda: run(params, state, cs, reset_res))
 
 
 def main():

@@ -1,9 +1,8 @@
 #!/usr/bin/env python
 """Ablation profile of the general XLA rollout path (bench.py bench_xla).
 
-The XLA `jit(scan(vmap))` engine saturates ~24M env-steps/s regardless of
-batch width — it is bound by per-step work/fusion boundaries, not FLOPs.
-This tool measures which step component costs what, by toggling them:
+The XLA `jit(scan(vmap))` engine runs each env step as many small fusions;
+this tool measures which step component costs what, by toggling them:
 
   base       full PID config (native noise + random scenario + autoreset)
   noise-off  exogenous zero noise (no threefry AR(1)/Johnson chain)
@@ -11,17 +10,24 @@ This tool measures which step component costs what, by toggling them:
   both-off   both of the above
   fixedhz    fixed-horizon rollout (no autoreset reset-branch)
 
-Prints one JSON line of steps/s per variant.  Run on the TPU when idle —
-results feed the XLA-path optimization notes in BASELINE.md.
+Prints one JSON line of steps/s per variant, with the device record.
+Run on the GPU; results feed the XLA-path notes in PERF.md.
 """
 import json
+import sys
 import time
 
 import jax
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/simglucose_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+sys.path.insert(0, __file__.rsplit("/", 2)[0])
+
+from simglucose_tpu.utils.runtime import (  # noqa: E402
+    device_record,
+    use_compile_cache,
+)
+
+use_compile_cache()
 
 B = 4096
 T = 256
@@ -56,15 +62,15 @@ def measure(cfg_kwargs, env_kwargs=None, fixed=False):
     else:
         run = make_batch_rollout_fn(cfg, ctrl, n_steps=T, donate=True)
 
-    state, last, traj = run(params, state, ctrl_state, reset_res)
-    _ = float(np.asarray(traj.reward[-1])[0])
-
+    state, last, traj = jax.block_until_ready(
+        run(params, state, ctrl_state, reset_res)
+    )
     tic = time.perf_counter()
     for _ in range(N_CALLS):
         state, last, traj = run(params, state, ctrl_state, last)
-    final = np.asarray(traj.reward[-1])
+    jax.block_until_ready(traj)
     toc = time.perf_counter()
-    assert np.isfinite(final).all()
+    assert np.isfinite(np.asarray(traj.reward[-1])).all()
     return B * T * N_CALLS / (toc - tic)
 
 
@@ -81,13 +87,10 @@ def main():
         ),
         "fixedhz": dict(cfg_kwargs={}, fixed=True),
     }
-    out = {}
+    out = {"device": device_record()}
     for name, kw in variants.items():
-        try:
-            out[name] = round(measure(kw.get("cfg_kwargs", {}),
-                                      fixed=kw.get("fixed", False)))
-        except Exception as e:
-            out[name] = f"{type(e).__name__}: {e}"[:120]
+        out[name] = round(measure(kw.get("cfg_kwargs", {}),
+                                  fixed=kw.get("fixed", False)))
     print(json.dumps(out))
 
 

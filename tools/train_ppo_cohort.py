@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""Train the fused-PPO glucose controller at cohort scale on TPU and ship
-the best checkpoint.
+"""Train the fused-PPO glucose controller at cohort scale on a GPU and
+ship the best checkpoint.
 
-The training loop is rl/fused.py's pallas-actor + XLA-learner iteration
+The training loop is rl/fused.py's kernel-actor + XLA-learner iteration
 (BASELINE config 4) at B=8192; every EVAL_EVERY iterations the CURRENT
 policy is evaluated deterministically (mean action) on the full 30-patient
 clinical cohort for 24 h through the XLA env path — the same protocol as
@@ -15,7 +15,7 @@ Reference analog: examples/run_rllab.py:1-43 (the reference's only
 end-to-end RL training), scaled to the full cohort with a clinical
 evaluation gate.
 
-Usage: python tools/train_ppo_tpu.py [n_blocks] [iters_per_block]
+Usage: python tools/train_ppo_cohort.py [n_blocks] [iters_per_block]
 """
 import json
 import os
@@ -25,10 +25,11 @@ import time
 import jax
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/simglucose_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+from simglucose_tpu.utils.runtime import use_compile_cache  # noqa: E402
+
+use_compile_cache()
 
 B = 8192
 HIDDEN = 64
@@ -112,9 +113,6 @@ def main():
         # gamma*lam must keep the hypo consequence of an overdose inside the
         # GAE credit horizon, or training drifts toward over-dosing
         lam=lam,
-        # learner as one fused pallas kernel per grad step (r4: 2.0 ms vs
-        # 3.1 ms per iteration with the XLA learner)
-        pallas_learner=True,
         shuffle_block=2048,
     )
     policy = init_policy(
@@ -183,15 +181,11 @@ def main():
         make_fused_train_loop(
             cfg, B, iters_per_block, hidden=HIDDEN, reward_kind="neg_risk",
             continuing=True, reward_fn=hypo_weighted_reward,
-            # the continuing config schedules ~1.2MB over the 16MB scoped
-            # VMEM budget at the default t_chunk=16; halving the trajectory
-            # block fits with headroom
-            pallas_overrides=dict(t_chunk=8),
         ),
         donate_argnums=(1,),
     )
 
-    # BB-dominance selection (VERDICT r4 item 6): the BB therapy baseline
+    # BB-dominance selection: the BB therapy baseline
     # at the SAME eval seed is the bar; prefer checkpoints that dominate
     # it (RI better AND TIR within 1% AND hypo no worse), best RI among
     # those; fall back to plain best-RI until one dominates.
